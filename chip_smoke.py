@@ -18,7 +18,38 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      dropped grid updates, kernel launch counts from the timed run, and
      the first 3 scans against the port's own CPU run (plain versions);
   6. where the time goes: torch.profiler over 3 more scans, per span of
-     lio_step (host time, kernel time, launches) and the card's idle share.
+     lio_step (host time, kernel time, launches) and the card's idle share;
+  7. K1's dense-bank entry (`apply_grouped_updates`) against its plain
+     version at bench_e2e's dense shapes (the 2 x 128^3 high bank and the
+     2 x 64^3 low bank, each plus the padding group; 256 steps, 49152
+     records), bit for bit, `dropped` included, the padding group
+     unchanged: all steps used, steps parked on the padding group (the
+     low bank parks most of its steps on every insert), and a
+     capacity-overflow case; both timed;
+  8. the mapping slice: `MapBuilder` on bench.py's bench_e2e course at
+     bench_e2e's config (dense 0.2 m / 0.8 m grids, extents 128 / 64,
+     dense_apply_groups 256, 2 background threads, pipeline_depth 1):
+     static start, a warm-up lap and a bit (the revisit closes loops), a
+     timed stretch, a short profiled window, `finish_trajectory()`. Checks:
+     initialized, finite poses, no failure reset, zero dropped groups, at
+     least one INTER constraint, the final optimization ran, K1's dense
+     entry launched twice and K2 once per stepped scan; in a window of
+     steps after the motion starts that runs across a submap finish, every
+     dense K1 call of the main path against its plain version on a CPU
+     copy of the same bank and keys, bit for bit; and each of the first 10
+     steps, the window's first two and the steps either side of the
+     finish, re-run on the CPU (plain versions) from the card's pre-step
+     state and input, within 2e-3 of the card's local pose.
+
+Phase 8 compares step by step, not the free-running CPU trajectory: on
+this course an input change of 1e-6 moves the CPU run's fifth local pose
+by 1e-2 (PERF.md, Findings), so a free-running comparison would
+measure that sensitivity, not the port. For the same reason the banks are
+compared at K1's dense entry, from the card's own inputs: a CPU step
+inserts at a pose that differs from the card's in the last bits.
+
+Phase 8's timed stretch is TIMED_E2E scans, not bench.py's full lap: the
+whole script must stay well inside its time limit (PERF.md says so).
 
 Scan stamps are spaced 0.6 s apart so the motion filter (max_time_seconds
 0.5) admits every scan and the run reaches num_range_data = 100 inserts.
@@ -48,6 +79,13 @@ COMPARE = 3  # scans compared with the CPU run
 POSE_ATOL = 2e-3  # m and quaternion components, as tests/test_torch_lio.py
 REPEATS = 25
 PROFILED = 3  # scans under torch.profiler after the timed run (phase 6)
+E2E_STATIC = 16  # bench.py: round(1.6 / scan_period) stationary scans
+E2E_WARM = 235  # bench.py: round(1.12 * lap), lap = 2 pi 5 m / 1.5 m/s / 0.1 s
+E2E_TIMED = 20  # bench.py times a full lap (209 scans); cut to fit the limit
+E2E_PROFILED = 2  # scans under torch.profiler after the timed stretch
+E2E_COMPARE = 10  # local poses compared with the port's CPU run
+E2E_BANK_FROM = 100  # the bank window starts here (steps; the motion starts at step 8)
+E2E_BANK_MAX = 60  # steps, enough for a submap finish (every ~32 steps here)
 SPANS = ("lio.preintegrate", "frontend.filter", "frontend.match", "lio.window",
          "frontend.insert", "frontend.histogram")
 G = 9.80511
@@ -84,6 +122,31 @@ BENCH_OVERRIDES = {
         "gn_iterations": 3,
         "ceres_scan_matcher": {"max_num_iterations": 6, "function_tolerance": 1e-3},
     }
+}
+# bench.py bench_e2e (the dense end-to-end config) with dense grouped apply
+E2E_OVERRIDES = {
+    "trajectory_builder": {
+        "scan_period": 0.1,
+        "frames_for_static_initialization": 8,
+        "enable_ndt_initialization": False,
+        "submaps": {"high_resolution": 0.2, "low_resolution": 0.8,
+                    "high_resolution_extent": 128, "low_resolution_extent": 64,
+                    "num_range_data": 16, "dense_apply_groups": 256},
+        "max_filtered_points": 8192,
+        "max_high_res_points": 256,
+        "max_low_res_points": 256,
+    },
+    "pose_graph": {
+        "optimize_every_n_nodes": 32,
+        "max_submaps": 32,
+        "max_nodes": 512,
+        "max_constraints": 2048,
+        "max_radius_enable_loop_detection": 10.0,
+        "num_close_submaps_loop_with_initial_value": 5,
+        "constraint_builder": {"min_score": 0.45, "every_nodes_to_find_constraint": 2,
+                               "max_nodes_per_search_dispatch": 4},
+    },
+    "map_builder": {"num_background_threads": 2},
 }
 # two active submaps after a spawn: twice bench.py's apply capacities
 SPAWN_CAPACITIES = {"brick_apply_groups": 1024, "low_brick_apply_groups": 384}
@@ -311,6 +374,315 @@ def check_slice(ga, ac, dev):
     return launches, scans_per_s
 
 
+def check_dense_grouped_apply(ga, rng):
+    """Phase 7: K1's dense entry at bench_e2e's dense banks, one insert's
+    49152 records: the high bank (2 x 128^3 cells plus the padding group =
+    257 groups of 16384) with all 256 steps used, with 100 groups touched
+    (156 steps park on the padding group) and with 200 touched at capacity
+    64 (136 dropped); the low bank (2 x 64^3 plus padding = 33 groups) at
+    256 steps, where 224 steps park, as on every insert of phase 8."""
+    cpg = ga.DENSE_CELLS_PER_GROUP
+    out = {}
+    for tag, extent, capacity, touched in (("dense", 128, 256, 256), ("dense_park", 128, 256, 100),
+                                           ("dense_overflow", 128, 64, 200),
+                                           ("dense_low", 64, 256, 32)):
+        groups = 2 * extent ** 3 // cpg + 1
+        kw = dict(cells_per_group=cpg, hit_odds=0.55 / 0.45, miss_odds=0.49 / 0.51,
+                  dummy_group=groups - 1)
+        bank = torch.from_numpy(rng.integers(0, 32768, groups * cpg).astype(np.int16)).cuda()
+        group = rng.integers(0, touched, 49152).astype(np.int32)
+        cell = (rng.integers(0, cpg // 4, 49152) * 4).astype(np.int32)
+        keys = ga.pack_keys(torch.from_numpy(group), torch.from_numpy(cell),
+                            torch.from_numpy(rng.integers(0, 2, 49152).astype(np.int32)),
+                            torch.from_numpy(rng.random(49152) < 0.95), cpg)
+        keys = torch.sort(keys).values.cuda()
+        k, kd = ga.apply_grouped_updates(bank.clone(), keys, num_groups=capacity, **kw)
+        p, pd = ga.apply_grouped_updates_plain(bank.clone(), keys, num_groups=capacity, **kw)
+        torch.cuda.synchronize()
+        err = int((k.int() - p.int()).abs().max())
+        check(torch.equal(k, p), f"K1 {tag}: kernel bank differs from plain ({err})")
+        check(int(kd) == int(pd) == touched - min(touched, capacity),
+              f"K1 {tag}: dropped {int(kd)} (kernel) vs {int(pd)} (plain)")
+        check(torch.equal(k[-cpg:], bank[-cpg:]), f"K1 {tag}: padding group changed")
+        check(not torch.equal(k[:-cpg], bank[:-cpg]), f"K1 {tag}: nothing changed")
+        work = bank.clone()
+        ms = timed_median(lambda: ga.apply_grouped_updates(work, keys, num_groups=capacity, **kw))
+        plain_ms = timed_median(lambda: ga.apply_grouped_updates_plain(work, keys, num_groups=capacity,
+                                                                       **kw))
+        print(f"K1 apply_grouped_updates {tag}: {groups} groups, {capacity} steps, "
+              f"{touched} touched, {max(0, capacity - touched)} parked, dropped {int(kd)}: "
+              f"bit-identical, padding group unchanged; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        out[tag] = (err, ms, plain_ms)
+    return out
+
+
+def e2e_course(n_scans):
+    """bench.py's bench_e2e feed, made up front: per scan its IMU samples
+    [(t, acc, gyr)], its stamp, points and point times. The first
+    E2E_STATIC scans stand still; then the 5 m circle at 1.5 m/s."""
+    from dliom_tpu_torch.io.synthetic import ImuNoise, ImuSimulator, SyntheticWorld
+    from dliom_tpu_torch.transform.rigid import Rigid3
+
+    radius, speed, period = 5.0, 1.5, 0.1
+    world = SyntheticWorld.create(num_beams=16, num_azimuths=600)
+    sim = ImuSimulator(rate=100.0, noise=ImuNoise(acc_noise=0.02, gyr_noise=0.002,
+                                                  gyr_bias0=(0.0, 0.0, 0.004)), gravity=G, seed=4)
+
+    def circle_pose(tau):
+        ang = speed / radius * tau
+        p = np.array([radius * np.sin(ang), radius * (1.0 - np.cos(ang)), 0.0], np.float32)
+        v = np.array([speed * np.cos(ang), speed * np.sin(ang), 0.0])
+        q = np.array([np.cos(ang / 2), 0.0, 0.0, np.sin(ang / 2)], np.float32)
+        return Rigid3(q, p), v
+
+    course, t, tau = [], 0.0, 0.0
+    prev_pose, prev_v = circle_pose(0.0)[0], np.zeros(3)
+    for k in range(n_scans):
+        if k < E2E_STATIC:
+            pose, v = prev_pose, np.zeros(3)
+        else:
+            tau += period
+            pose, v = circle_pose(tau)
+        dts, accs, gyrs, mask = sim.between(prev_pose, pose, prev_v, v, period, 64)
+        imu = []
+        for i in range(int(mask.sum())):
+            t += float(dts[i])
+            imu.append((t, accs[i], gyrs[i]))
+        pts, ptimes = world.cast_scan(pose)
+        course.append((imu, t, pts, ptimes))
+        prev_pose, prev_v = pose, v
+    return course
+
+
+def drive(builder, scans):
+    for imu, t, pts, ptimes in scans:
+        for ti, acc, gyr in imu:
+            builder.add_imu_data(ti, acc, gyr)
+        builder.add_range_data(t, pts, ptimes)
+
+
+def card_busy_ms(events):
+    """Union of the device-side intervals (ms) the profiler saw, over all
+    streams (overlapping kernels of two streams count once), and the five
+    device activities with the most time (name, ms, count). The profiler
+    also projects each record_function span onto the device timeline; those
+    annotations are left out, so only kernels, copies and sets count."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in host_names
+              and not getattr(e, "is_user_annotation", False)]
+    ms, count = Counter(), Counter()
+    for e in device:
+        ms[e.name] += e.time_range.elapsed_us() / 1e3
+        count[e.name] += 1
+    top = [(name, t, count[name]) for name, t in ms.most_common(5)]
+    busy, end = 0.0, -1.0
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in device):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, top
+
+
+def record_steps(pose_steps, bank_from, bank_max):
+    """Make MapBuilder record what phase 8 holds against the CPU; returns
+    the dict it fills. `lio_step` is wrapped to keep a CPU copy of the
+    pre-step state and input (the banks are updated in place, so the copy
+    comes first) of the steps in `pose_steps` and of every step of the bank
+    window. The bank window starts at step `bank_from` and ends one step
+    after the first step in it that finishes a submap (so it holds the next
+    step's slot recycle), after at most `bank_max` steps. In it, every call
+    of K1's dense entry is held against its plain version on a CPU copy of
+    the same bank and keys at once, bit for bit, `dropped` included."""
+    from torch.utils._pytree import tree_map
+
+    from dliom_tpu_torch import map_builder
+    from dliom_tpu_torch.ops import grouped_apply as ga
+
+    rec = {"n": 0, "steps": {}, "calls": [], "finished": [], "end": bank_from + bank_max,
+           "window": False}
+    step, dense = map_builder.lio_step, ga.apply_grouped_updates
+
+    def cpu(tree):
+        return tree_map(lambda x: x.to("cpu", copy=True) if isinstance(x, torch.Tensor) else x, tree)
+
+    def recording(state, inp, cfg):
+        k = rec["n"]
+        rec["window"] = bank_from <= k < rec["end"]
+        if k in pose_steps or rec["window"]:
+            rec["steps"][k] = cpu((state, inp))
+        out = step(state, inp, cfg)
+        if rec["window"] and int(out[1].scan.finished_submap) >= 0:
+            rec["finished"].append(k)
+            rec["end"] = min(rec["end"], k + 2)
+        rec["n"] = k + 1
+        return out
+
+    def dense_recording(pool, keys, **kw):
+        if not rec["window"]:
+            return dense(pool, keys, **kw)
+        cpg, before, keys_c = kw["cells_per_group"], pool.to("cpu", copy=True), keys.cpu()
+        pool, dropped = dense(pool, keys, **kw)
+        want, want_dropped = ga.apply_grouped_updates_plain(before.clone(), keys_c, **kw)
+        got = pool.cpu()
+        valid = keys_c != 2**31 - 1
+        touched = int(torch.unique(keys_c[valid] >> ga.cell_bits(cpg)).numel())
+        rec["calls"].append(dict(
+            step=rec["n"], groups=got.numel() // cpg, touched=touched,
+            parked=max(0, kw["num_groups"] - touched), records=int(valid.sum()),
+            equal=torch.equal(got, want), padding=torch.equal(got[-cpg:], before[-cpg:]),
+            changed=not torch.equal(got, before), dropped=(int(dropped), int(want_dropped))))
+        return pool, dropped
+
+    map_builder.lio_step = recording
+    ga.apply_grouped_updates = dense_recording
+    return rec
+
+
+def check_mapping(ga, ac, dev):
+    """Phase 8: MapBuilder on the bench_e2e course, see the module docstring."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dliom_tpu_torch.common.config import load_config
+    from dliom_tpu_torch.map_builder import MapBuilder
+
+    cfg = load_config("basic", E2E_OVERRIDES)
+    n_warm = E2E_STATIC + E2E_WARM
+    course = e2e_course(n_warm + E2E_TIMED + E2E_PROFILED)
+    builder = MapBuilder(cfg, use_background_threads=True, pipeline_depth=1, device=dev)
+    pg = builder.pose_graph
+    rec = record_steps(set(range(E2E_COMPARE)), E2E_BANK_FROM, E2E_BANK_MAX)
+    ga.LAUNCHES = 0  # the main path starts: zero the launch counts
+    ga.DENSE_LAUNCHES = 0
+    ac.LAUNCHES = 0
+    t_all = time.perf_counter()
+    drive(builder, course[:n_warm])
+    builder.flush()
+    pg.wait_for_all_computations()
+    warm_s = time.perf_counter() - t_all
+    print(f"mapping: warm-up {n_warm} scans in {warm_s:.1f} s; nodes {len(pg.nodes)} submaps "
+          f"{len(pg.submaps)} INTER {pg.num_inter_constraints()}", flush=True)
+    builder.local_slam_latency_seconds.clear()
+    pg.constraint_search_seconds.clear()
+    pg.phase_seconds.clear()
+    t0 = time.perf_counter()
+    drive(builder, course[n_warm:n_warm + E2E_TIMED])
+    builder.flush()
+    pg.wait_for_all_computations()
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    lat = np.asarray(builder.local_slam_latency_seconds) * 1e3
+    phases = dict(sorted(pg.phase_seconds.items()))
+    search = np.asarray(pg.constraint_search_seconds)
+    print(f"mapping: timed {E2E_TIMED} scans in {timed_s:.3f} s", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        drive(builder, course[n_warm + E2E_TIMED:])
+        builder.flush()
+        pg.wait_for_all_computations()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - tp) * 1e3
+    busy, top = card_busy_ms(prof.events())
+
+    spa_before = pg.phase_seconds.get("spa", 0.0)
+    builder.finish_trajectory()
+    torch.cuda.synchronize()
+    final_spa_s = pg.phase_seconds.get("spa", 0.0) - spa_before
+    total_s = time.perf_counter() - t_all
+    launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
+                "affine_chain": ac.LAUNCHES}
+
+    results = builder.local_trajectory(0)
+    stepped = len(results)
+    inserted = sum(r["inserted"] for r in results)
+    inter = pg.num_inter_constraints()
+    drops = int(builder.trajectory(0)._lio.frontend.submaps.dense_dropped[0])
+    print(f"mapping: {len(course)} scans ({E2E_STATIC} static, {E2E_WARM} warm-up, {E2E_TIMED} "
+          f"timed, {E2E_PROFILED} profiled) in {total_s:.1f} s (warm-up {warm_s:.1f} s); "
+          f"{stepped} stepped, {inserted} inserted")
+    print(f"mapping: timed {E2E_TIMED} scans in {timed_s:.3f} s = {E2E_TIMED / timed_s:.3f} scans/s; "
+          f"scan latency p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms; "
+          f"searches {len(search)} (p50 {np.percentile(search, 50) if len(search) else 0:.3f} s)")
+    print(f"mapping: nodes {len(pg.nodes)} submaps {len(pg.submaps)} constraints "
+          f"{len(pg.constraints)} INTER {inter}; final optimization {final_spa_s:.2f} s; "
+          f"dense groups dropped {drops}; launches {launches}")
+    print("mapping: phase_seconds over the timed stretch: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    print(f"mapping: profiled {E2E_PROFILED} scans: {prof_wall / E2E_PROFILED:.1f} ms/scan wall, "
+          f"card busy {busy / E2E_PROFILED:.2f} ms/scan, idle share {1 - busy / prof_wall:.3f}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    for name, ms, n in top:
+        print(f"mapping: profiled card time {ms:9.2f} ms in {n:6d} x {name[:90]}")
+
+    check(builder.initialized, "MapBuilder initialized")
+    for k, r in enumerate(results):
+        check(np.all(np.isfinite(r["local_pose"].translation))
+              and np.all(np.isfinite(r["local_pose"].rotation)), f"local pose {k} finite")
+        check(not r["failed"], f"scan {k}: FailureDetection reset")
+    for k, (_, pose) in enumerate(builder.optimized_node_poses()):
+        check(np.all(np.isfinite(pose.translation)) and np.all(np.isfinite(pose.rotation)),
+              f"node {k} pose finite")
+    check(drops == 0, f"no dropped dense groups ({drops})")
+    check(inter >= 1, "at least one INTER constraint")
+    check(final_spa_s > 0.0, "the final optimization ran")
+    check(stepped == rec["n"] > 0, f"{stepped} results for {rec['n']} steps")
+    # the insert runs masked where the motion filter skips: K1 dense on
+    # both banks every step
+    check(launches["grouped_apply_dense"] == 2 * stepped, "K1 dense entry twice per stepped scan")
+    check(launches["affine_chain"] == stepped, "K2 once per stepped scan")
+
+    # K1's dense entry on the main path, held against plain in the bank window
+    calls = rec["calls"]
+    check(rec["finished"], f"a submap finished in the bank window (steps {E2E_BANK_FROM}-"
+          f"{rec['end'] - 1})")
+    check(len(calls) == 2 * (rec["end"] - E2E_BANK_FROM), "recorded both dense banks of every "
+          "step of the bank window")
+    for c in calls:
+        check(c["equal"] and c["padding"] and c["dropped"][0] == c["dropped"][1] == 0,
+              f"K1 dense entry on the card against plain at step {c['step']}: {c}")
+    inserting = [c for c in calls if c["records"]]
+    check(inserting and all(c["changed"] for c in inserting), "the window's inserts wrote the banks")
+    parks = {}
+    for c in inserting:
+        parks.setdefault(c["groups"], []).append(c["parked"])
+    check(any(max(v) > 0 for v in parks.values()), "steps parked on the padding group")
+    print(f"mapping: K1 dense entry on the main path, steps {E2E_BANK_FROM}-{rec['end'] - 1} "
+          f"(submap finished at step {rec['finished'][0]}): {len(calls)} calls ({len(inserting)} "
+          f"with records) bit-identical to plain on the CPU, dropped 0, padding group unchanged; "
+          + "; ".join(f"{g}-group bank: {min(v)}-{max(v)} of 256 steps parked"
+                      for g, v in sorted(parks.items())))
+
+    # steps again on the CPU (K1, K2 plain), each from the card's pre-step
+    # state and input: the first E2E_COMPARE, then the start of the bank
+    # window and the steps either side of the submap finish
+    from dliom_tpu_torch.frontend.lio import lio_step
+
+    fin = rec["finished"][0]
+    compared = sorted(set(range(E2E_COMPARE)) | {E2E_BANK_FROM, E2E_BANK_FROM + 1, fin, fin + 1})
+    worst = 0.0
+    for k in compared:
+        state, inp = rec["steps"][k]
+        _, res = lio_step(state, inp, cfg.trajectory_builder)
+        g = results[k]["local_pose"]
+        d = max(float(np.abs(g.translation - res.scan.local_pose.translation.numpy()).max()),
+                float(np.abs(g.rotation - res.scan.local_pose.rotation.numpy()).max()))
+        worst = max(worst, d)
+        check(d <= POSE_ATOL, f"mapping step {k}: CUDA vs CPU pose differ by {d:.3e}")
+        check(bool(res.scan.inserted) == results[k]["inserted"], f"mapping step {k} inserted")
+        check((int(res.scan.finished_submap) >= 0) == (k == fin) or k < E2E_BANK_FROM,
+              f"mapping step {k}: the CPU finishes a submap where the card does")
+    print(f"mapping: steps {compared} re-run on the CPU from the card's state: largest "
+          f"pose difference {worst:.3e} (tolerance {POSE_ATOL})")
+    return launches, {"scans_per_s": E2E_TIMED / timed_s, "p50_ms": float(np.percentile(lat, 50)),
+                      "p99_ms": float(np.percentile(lat, 99)), "inter": inter,
+                      "nodes": len(pg.nodes), "submaps": len(pg.submaps),
+                      "idle_share": 1 - busy / prof_wall, "phase_seconds": phases}
+
+
 def main():
     card = environment()
     import dliom_tpu_torch  # noqa: F401  (pins f32, TF32 off)
@@ -328,11 +700,13 @@ def main():
     k1 = check_grouped_apply(ga, rng)
     k2 = check_affine_chain(ac, rng)
     launches, scans_per_s = check_slice(ga, ac, get_device("cuda"))
+    k1d = check_dense_grouped_apply(ga, rng)
+    map_launches, mapping = check_mapping(ga, ac, get_device("cuda"))
     check("jax" not in sys.modules, "no jax imported")
 
-    print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s,
+    print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "mapping": mapping,
                       "grouped_apply_by_shape": {t: {"max_abs_err": v[0], "ms": v[1], "plain_ms": v[2]}
-                                                 for t, v in k1.items()}}))
+                                                 for t, v in {**k1, **k1d}.items()}}))
     print(json.dumps({"kernels": [
         {"name": "grouped_apply", "route": "cuda", "source": "dliom_tpu_torch/csrc/grouped_apply.cu",
          "replaces": "dliom_tpu/ops/pallas_apply.py:257", "launches": launches["grouped_apply"],
@@ -341,6 +715,12 @@ def main():
         {"name": "affine_chain", "route": "cuda", "source": "dliom_tpu_torch/csrc/affine_chain.cu",
          "replaces": "dliom_tpu/imu/preintegration.py:102", "launches": launches["affine_chain"],
          "max_abs_err": k2[0], "ms": k2[1], "plain_ms": k2[2]},
+        {"name": "grouped_apply_dense", "route": "cuda",
+         "source": "dliom_tpu_torch/csrc/grouped_apply.cu",
+         "replaces": "dliom_tpu/ops/pallas_apply.py:215",
+         "launches": map_launches["grouped_apply_dense"],
+         "max_abs_err": max(v[0] for v in k1d.values()),
+         "ms": k1d["dense"][1], "plain_ms": k1d["dense"][2]},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,15 +1,18 @@
 """dliom_tpu_torch — the PyTorch/CUDA port of `dliom_tpu`.
 
-The port runs the per-scan tightly-coupled LIO step
-(`frontend/lio.py::lio_step`) on PyTorch tensors. Module paths and names
-follow `dliom_tpu` so each port module sits beside its reference; the JAX
-package stays the oracle the parity tests hold this one against.
+The port runs the mapping path on PyTorch tensors: `MapBuilder`
+(`map_builder.py`) with static initialization, the per-scan tightly-coupled
+LIO step (`frontend/lio.py::lio_step`) on dense or brick grids, and the
+loop-closure backend and SPA (`backend/`). Module paths and names follow
+`dliom_tpu` so each port module sits beside its reference; the JAX package
+stays the oracle the parity tests hold this one against.
 
 The two TPU Pallas kernels of that step are CUDA C++ kernels here
 (`csrc/`), built at first use with nvcc into a plain-C shared library:
 
   ops/grouped_apply.py     K1, grouped grid-update apply
-                           (dliom_tpu/ops/pallas_apply.py::apply_grouped_rows)
+                           (dliom_tpu/ops/pallas_apply.py::apply_grouped_rows,
+                           and its dense-bank entry apply_grouped_updates)
   imu/affine_chain.py      K2, IMU error-state affine chain
                            (dliom_tpu/imu/preintegration.py::_pallas_affine_chain)
 

@@ -32,6 +32,7 @@ from dliom_tpu_torch.mapping.submap import (
     apply_pending_spawn,
     brick_spec,
     brick_spec_low,
+    grid_specs,
     insert_range_data_into_submaps,
     make_active_submaps,
     matching_slot,
@@ -131,7 +132,9 @@ def step(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilderConfig, fu
             min_num_points=lr.min_num_points, max_range=lr.max_range,
             out_capacity=cfg.max_low_res_points)
 
-    # 6. match against the front submap's two brick grids
+    # 6. match against the front submap's two grids (brick or dense each)
+    sm_cfg = cfg.submaps
+    hi_spec, lo_spec = grid_specs(sm_cfg)
     mslot = matching_slot(state.submaps)
     submap_pose = slot_pose(state.submaps, mslot)
     csm = cfg.ceres_scan_matcher
@@ -140,9 +143,12 @@ def step(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilderConfig, fu
         result = match(
             submap_pose.inverse().compose(prediction),
             clouds=[(high.points, high.mask), (low.points, low.mask)],
-            grids=[state.submaps.high_brick, state.submaps.low_brick],
-            grid_bases=[bank_slot, bank_slot],
-            specs=[brick_spec(cfg.submaps), brick_spec_low(cfg.submaps)],
+            grids=[state.submaps.high_brick if sm_cfg.use_brick_grid else state.submaps.high_values,
+                   state.submaps.low_brick if sm_cfg.use_brick_grid_low else state.submaps.low_values],
+            grid_bases=[bank_slot if sm_cfg.use_brick_grid else bank_slot * hi_spec.num_cells,
+                        bank_slot if sm_cfg.use_brick_grid_low else bank_slot * lo_spec.num_cells],
+            specs=[brick_spec(sm_cfg) if sm_cfg.use_brick_grid else hi_spec,
+                   brick_spec_low(sm_cfg) if sm_cfg.use_brick_grid_low else lo_spec],
             occupied_space_weights=[csm.occupied_space_weight_0, csm.occupied_space_weight_1],
             translation_weight=csm.translation_weight,
             rotation_weight=csm.rotation_weight,

@@ -317,3 +317,48 @@ def _insert_brick_slots(
         fresh=alloc.to(torch.int32),
     )
     return bank._replace(counts=counts, dropped=dropped)
+
+
+def _demorton_brick(code: torch.Tensor) -> torch.Tensor:
+    from dliom_tpu_torch.ops.morton import compact1by2
+
+    return torch.stack([compact1by2(code), compact1by2(code >> 1), compact1by2(code >> 2)], dim=-1)
+
+
+def compress_brick(bank: BrickBank, spec: BrickGridSpec, slot: int, dense_spec, capacity: int):
+    """A slot's occupied cells as the backend's CompressedGrid, with indices
+    in `dense_spec`'s (cropped, dense) linear space; cells beyond the crop
+    drop. Groups of the slot beyond its allocation count are stale (a
+    recycled slot's pool is never cleared) and are masked before the top-k.
+    Returns new tensors: the capture outlives the slot's recycling."""
+    from dliom_tpu_torch.backend.compression import CompressedGrid, top_k
+    from dliom_tpu_torch.mapping.grid import linear_index
+
+    dev = bank.pool.device
+    npc = spec.num_pool_cells
+    pool = bank.pool[slot * npc:(slot + 1) * npc].to(torch.int32)
+    cpg = spec.cells_per_group
+    count_slot = bank.counts[slot]
+    cell_pg = torch.div(torch.arange(npc, dtype=torch.int32, device=dev), cpg, rounding_mode="floor")
+    pool = torch.where(cell_pg < count_slot, pool, 0)
+    top_vals, top_addr = top_k(pool, capacity)
+    top_addr = top_addr.to(torch.int32)
+    pg = torch.div(top_addr, cpg, rounding_mode="floor")
+    within = top_addr - pg * cpg
+    dgroup = bank.group_of_slot[(slot * spec.num_pool_groups + pg).long()]
+    mcode = dgroup * spec.alloc_bricks + torch.div(within, BRICK_CELLS, rounding_mode="floor")
+    off = torch.remainder(within, BRICK_CELLS)
+    brick = _demorton_brick(mcode)
+    offs = torch.stack([torch.div(off, BRICK * BRICK, rounding_mode="floor"),
+                        torch.remainder(torch.div(off, BRICK, rounding_mode="floor"), BRICK),
+                        torch.remainder(off, BRICK)], dim=-1)
+    cells = brick * BRICK + offs - spec.half
+    lin, ok = linear_index(cells, dense_spec)
+    valid = (top_vals > 0) & ok & (pg < count_slot)
+    key = torch.where(valid, lin, dense_spec.num_cells)
+    key, order = torch.sort(key, stable=True)
+    return CompressedGrid(
+        indices=key,
+        values=torch.where(valid, top_vals, 0)[order].to(GRID_DTYPE),
+        count=torch.sum(valid, dtype=torch.int32),
+    )

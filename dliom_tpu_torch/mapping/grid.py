@@ -46,6 +46,10 @@ def cell_index(points: torch.Tensor, resolution: float) -> torch.Tensor:
     return torch.round(points / resolution).to(torch.int32)
 
 
+def center_of_cell(cells: torch.Tensor, resolution: float) -> torch.Tensor:
+    return cells.to(torch.float32) * resolution
+
+
 def linear_index(cells: torch.Tensor, spec: GridSpec) -> Tuple[torch.Tensor, torch.Tensor]:
     """Signed cell index (..., 3) -> (flat index, in-bounds mask);
     out-of-bounds indices are clamped and must be masked by the caller."""
@@ -102,6 +106,28 @@ def lookup_value(values: torch.Tensor, cells: torch.Tensor, spec: GridSpec, base
     lin, ok = linear_index(cells, spec)
     v = values[base + lin].to(torch.int32)
     return torch.where(ok, v, 0)
+
+
+def lookup_probability(values: torch.Tensor, cells: torch.Tensor, spec: GridSpec, base=0) -> torch.Tensor:
+    return pv.value_to_probability(lookup_value(values, cells, spec, base))
+
+
+def set_cells(values: torch.Tensor, cells: torch.Tensor, new_values: torch.Tensor,
+              spec: GridSpec) -> torch.Tensor:
+    """Direct cell assignment (test and deserialization helper); returns a
+    new grid, out-of-bounds cells dropped. Of duplicate cells the last
+    assignment wins."""
+    lin, ok = linear_index(cells, spec)
+    out = torch.cat([values, values.new_zeros(1)])
+    out[torch.where(ok, lin, spec.num_cells).long()] = torch.as_tensor(
+        new_values, device=values.device).to(GRID_DTYPE).expand(lin.shape)
+    return out[: values.shape[0]].clone()
+
+
+def occupied_cells(values: torch.Tensor, spec: GridSpec, threshold: float = 0.501) -> torch.Tensor:
+    """Boolean occupancy over the dense grid (viz/serialization helper)."""
+    thr = int(pv.probability_to_value(torch.tensor(threshold, dtype=torch.float32)))
+    return values >= thr
 
 
 def interpolated_probability(values: torch.Tensor, points: torch.Tensor, spec: GridSpec,

@@ -1,17 +1,21 @@
-"""Submap3D / ActiveSubmaps3D as two fixed slots (port of the brick-grid
-branches of dliom_tpu/mapping/submap.py; reference mapping/3d/submap_3d.cc).
+"""Submap3D / ActiveSubmaps3D as two fixed slots (port of
+dliom_tpu/mapping/submap.py; reference mapping/3d/submap_3d.cc).
 
 Submap k lives in slot k % 2; the front (older) submap is the matching
 target; every scan is inserted into both active submaps; when the back
 submap reaches `num_range_data` scans, a new submap spawns at the start of
-the next step (`apply_pending_spawn`). Only the two-level brick grids are
-ported: the dense banks stay zero-size placeholders, and a config with a
-dense matching grid raises NotImplementedError.
+the next step (`apply_pending_spawn`). Each of the two grids is either a
+dense flat bank (two slots of extent^3 cells, plus one padding group with
+grouped apply) or a two-level brick bank, independently.
+
+Banks are updated in place by insertion and spawn, so a finished submap's
+grids must be copied out before the next step recycles its slot
+(map_builder.py captures them).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,13 +28,15 @@ from dliom_tpu_torch.mapping.brick_grid import (
     make_brick_bank,
     reset_slot,
 )
-from dliom_tpu_torch.mapping.grid import GRID_DTYPE
+from dliom_tpu_torch.mapping.grid import GRID_DTYPE, GridSpec
+from dliom_tpu_torch.ops.grid_update import _insert_slots
+from dliom_tpu_torch.ops.grouped_apply import dense_bank_size
 from dliom_tpu_torch.transform.rigid import Rigid3, _norm
 
 
 class ActiveSubmaps(NamedTuple):
-    high_values: torch.Tensor  # (0,) int16 placeholder on the brick path
-    low_values: torch.Tensor  # (0,) int16 placeholder on the brick path
+    high_values: torch.Tensor  # flat dense bank, (0,) on the brick path
+    low_values: torch.Tensor  # flat dense bank, (0,) on the brick path
     pose_rotation: torch.Tensor  # (2, 4)
     pose_translation: torch.Tensor  # (2, 3)
     num_range_data: torch.Tensor  # (2,) int32
@@ -51,10 +57,15 @@ class InsertionBatch(NamedTuple):
     hi_masks: torch.Tensor  # (2, N) + high_resolution_max_range crop
 
 
-def _require_bricks(cfg: SubmapsConfig) -> None:
-    if not (cfg.use_brick_grid and cfg.use_brick_grid_low):
-        raise NotImplementedError(
-            "dense submap grids are not ported: set use_brick_grid and use_brick_grid_low")
+def grid_specs(cfg: SubmapsConfig) -> Tuple[GridSpec, GridSpec]:
+    """Dense specs of both grids. On a brick path the dense spec is only
+    the backend's capture crop, with no insert and no padding group."""
+    return (
+        GridSpec(cfg.high_resolution, cfg.high_resolution_extent,
+                 0 if cfg.use_brick_grid else cfg.dense_apply_groups),
+        GridSpec(cfg.low_resolution, cfg.low_resolution_extent,
+                 0 if cfg.use_brick_grid_low else cfg.dense_apply_groups),
+    )
 
 
 def brick_spec(cfg: SubmapsConfig) -> BrickGridSpec:
@@ -79,13 +90,18 @@ def brick_spec_low(cfg: SubmapsConfig) -> BrickGridSpec:
 
 def make_active_submaps(cfg: SubmapsConfig, device=None) -> ActiveSubmaps:
     """One submap at identity (ActiveSubmaps3D ctor, submap_3d.cc:286-295)."""
-    _require_bricks(cfg)
+    hi, lo = grid_specs(cfg)
     f32 = dict(dtype=torch.float32, device=device)
     q = torch.zeros(2, 4, **f32)
     q[:, 0] = 1.0
+
+    def dense(spec: GridSpec, bricks: bool):
+        n = 0 if bricks else dense_bank_size(spec.num_cells, 2, spec.apply_groups)
+        return torch.zeros(n, dtype=GRID_DTYPE, device=device)
+
     return ActiveSubmaps(
-        high_values=torch.zeros(0, dtype=GRID_DTYPE, device=device),
-        low_values=torch.zeros(0, dtype=GRID_DTYPE, device=device),
+        high_values=dense(hi, cfg.use_brick_grid),
+        low_values=dense(lo, cfg.use_brick_grid_low),
         pose_rotation=q,
         pose_translation=torch.zeros(2, 3, **f32),
         num_range_data=torch.zeros(2, dtype=torch.int32, device=device),
@@ -93,9 +109,9 @@ def make_active_submaps(cfg: SubmapsConfig, device=None) -> ActiveSubmaps:
         pending_spawn=torch.zeros((), dtype=torch.bool, device=device),
         pending_rotation=torch.tensor([1.0, 0.0, 0.0, 0.0], **f32),
         pending_translation=torch.zeros(3, **f32),
-        high_brick=make_brick_bank(brick_spec(cfg), device),
+        high_brick=make_brick_bank(brick_spec(cfg), device) if cfg.use_brick_grid else None,
         lane=torch.zeros((), dtype=torch.int32, device=device),
-        low_brick=make_brick_bank(brick_spec_low(cfg), device),
+        low_brick=make_brick_bank(brick_spec_low(cfg), device) if cfg.use_brick_grid_low else None,
         dense_dropped=torch.zeros(1, dtype=torch.int32, device=device),
     )
 
@@ -154,18 +170,35 @@ def mark_insertion(state: ActiveSubmaps, gravity_alignment, origin_in_local,
     return state, finished
 
 
-def write_insertion_batch(batch: InsertionBatch, cfg: SubmapsConfig,
-                          high_brick: BrickBank, low_brick: BrickBank):
-    """Insert a batch into both brick banks (in place); returns the banks."""
-    _require_bricks(cfg)
+def write_insertion_batch(high_values, low_values, high_brick, batch: InsertionBatch,
+                          cfg: SubmapsConfig, low_brick=None, dense_dropped=None) -> dict:
+    """Insert a batch into both grids' banks (in place). Dense grouped-apply
+    overflow drops add into `dense_dropped` (brick drops live in the
+    banks). Returns the fields of ActiveSubmaps it rewrote."""
+    hi, lo = grid_specs(cfg)
     ins = cfg.range_data_inserter
     kw = dict(hit_probability=ins.hit_probability, miss_probability=ins.miss_probability,
               num_free_space_voxels=ins.num_free_space_voxels)
-    high = _insert_brick_slots(high_brick, batch.origins, batch.points, batch.hi_masks,
-                               spec=brick_spec(cfg), **kw)
-    low = _insert_brick_slots(low_brick, batch.origins, batch.points, batch.masks,
-                              spec=brick_spec_low(cfg), **kw)
-    return high, low
+    drops = []
+    if cfg.use_brick_grid:
+        high_brick = _insert_brick_slots(high_brick, batch.origins, batch.points, batch.hi_masks,
+                                         spec=brick_spec(cfg), **kw)
+    else:
+        high_values, d = _insert_slots(high_values, batch.origins, batch.points, batch.hi_masks,
+                                       spec=hi, **kw)
+        drops.append(d)
+    if cfg.use_brick_grid_low:
+        low_brick = _insert_brick_slots(low_brick, batch.origins, batch.points, batch.masks,
+                                        spec=brick_spec_low(cfg), **kw)
+    else:
+        low_values, d = _insert_slots(low_values, batch.origins, batch.points, batch.masks,
+                                      spec=lo, **kw)
+        drops.append(d)
+    out = dict(high_values=high_values, high_brick=high_brick, low_values=low_values,
+               low_brick=low_brick)
+    if dense_dropped is not None:
+        out["dense_dropped"] = dense_dropped + sum(drops) if drops else dense_dropped
+    return out
 
 
 def insert_range_data_into_submaps(state: ActiveSubmaps, origin_in_local, returns_in_local,
@@ -174,22 +207,40 @@ def insert_range_data_into_submaps(state: ActiveSubmaps, origin_in_local, return
     """One ActiveSubmaps3D::InsertRangeData step (submap_3d.cc:303-315);
     `enabled` gates it arithmetically. Returns (state, finished id or -1)."""
     batch = prepare_insertion(state, origin_in_local, returns_in_local, returns_mask, cfg, enabled)
-    high, low = write_insertion_batch(batch, cfg, state.high_brick, state.low_brick)
-    state = state._replace(high_brick=high, low_brick=low)
+    state = state._replace(**write_insertion_batch(
+        state.high_values, state.low_values, state.high_brick, batch, cfg,
+        low_brick=state.low_brick, dense_dropped=state.dense_dropped))
     return mark_insertion(state, gravity_alignment, origin_in_local, cfg, enabled)
+
+
+def _clear_dense_slot_(values: torch.Tensor, spec: GridSpec, slot: torch.Tensor,
+                       pending: torch.Tensor) -> None:
+    """Zero slot `slot` of a flat dense bank in place when `pending`, with
+    no host read (the padding group is never touched)."""
+    here = (torch.arange(2, dtype=torch.int32, device=values.device) == slot) & pending
+    values[: 2 * spec.num_cells].view(2, spec.num_cells).masked_fill_(here[:, None], 0)
 
 
 def apply_pending_spawn(state: ActiveSubmaps, cfg: SubmapsConfig) -> ActiveSubmaps:
     """Execute a deferred AddSubmap (submap_3d.cc:318-326): recycle the
     finished submap's slot for the new one, gated on `pending_spawn`."""
-    _require_bricks(cfg)
+    hi, lo = grid_specs(cfg)
     s = state
     pending = s.pending_spawn
     new_slot = torch.remainder(s.num_created, 2)
     here = (torch.arange(2, dtype=torch.int32, device=new_slot.device) == new_slot) & pending
+    high_brick, low_brick = s.high_brick, s.low_brick
+    if cfg.use_brick_grid:
+        high_brick = reset_slot(s.high_brick, brick_spec(cfg), new_slot, pending)
+    else:
+        _clear_dense_slot_(s.high_values, hi, new_slot, pending)
+    if cfg.use_brick_grid_low:
+        low_brick = reset_slot(s.low_brick, brick_spec_low(cfg), new_slot, pending)
+    else:
+        _clear_dense_slot_(s.low_values, lo, new_slot, pending)
     return s._replace(
-        high_brick=reset_slot(s.high_brick, brick_spec(cfg), new_slot, pending),
-        low_brick=reset_slot(s.low_brick, brick_spec_low(cfg), new_slot, pending),
+        high_brick=high_brick,
+        low_brick=low_brick,
         pose_rotation=torch.where(here[:, None], s.pending_rotation, s.pose_rotation),
         pose_translation=torch.where(here[:, None], s.pending_translation, s.pose_translation),
         num_range_data=torch.where(here, 0, s.num_range_data),

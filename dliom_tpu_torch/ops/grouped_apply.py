@@ -33,6 +33,8 @@ DENSE_CELLS_PER_GROUP = 16384
 
 # Kernel launches through `apply_grouped_rows` (plain-version calls not counted).
 LAUNCHES = 0
+# Of those, launches through the dense-bank entry `apply_grouped_updates`.
+DENSE_LAUNCHES = 0
 
 
 def dense_bank_size(num_cells: int, num_slots: int, apply_groups: int) -> int:
@@ -130,10 +132,11 @@ def apply_grouped_rows_plain(pool_flat, rows, starts, ends, cell_keys, *,
 
 def apply_grouped_rows(pool_flat, rows, starts, ends, cell_keys, *,
                        cells_per_group: int, hit_odds: float, miss_odds: float,
-                       fresh=None) -> torch.Tensor:
+                       fresh=None, dense: bool = False) -> torch.Tensor:
     """Row-level entry (the caller owns group -> pool-row translation).
     Updates `pool_flat` in place and returns it. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel. `dense` marks a launch from the
+    dense-bank entry, counted in DENSE_LAUNCHES too."""
     if pool_flat.device.type == "cpu":
         return apply_grouped_rows_plain(
             pool_flat, rows, starts, ends, cell_keys, cells_per_group=cells_per_group,
@@ -165,6 +168,62 @@ def apply_grouped_rows(pool_flat, rows, starts, ends, cell_keys, *,
         num_steps, cells_per_group, stream,
     )
     kernels.check(err, "grouped_apply")
-    global LAUNCHES
+    global LAUNCHES, DENSE_LAUNCHES
     LAUNCHES += 1
+    DENSE_LAUNCHES += int(dense)
     return pool_flat
+
+
+def _dense_tables(sorted_keys: torch.Tensor, num_groups: int, cells_per_group: int,
+                  g_total: int, dummy_group: int):
+    """K1's tables for a dense bank (group id == bank row): (rows, starts,
+    ends, dropped). Steps beyond the touched groups park on `dummy_group`
+    with empty ranges; `dropped` counts touched groups beyond capacity."""
+    cb = cell_bits(cells_per_group)
+    assert g_total << cb < 2**31, "packed key group id overflow"
+    group_of = sorted_keys >> cb
+    valid = sorted_keys != _SENTINEL
+    rows, starts, ends = build_group_tables(group_of, valid, num_groups)
+    head = torch.ones_like(valid)
+    head[1:] = group_of[1:] != group_of[:-1]
+    heads_total = torch.sum(head & valid, dtype=torch.int32)
+    kept = torch.sum(rows >= 0, dtype=torch.int32)
+    dropped = torch.clamp(heads_total - kept, min=0)
+    rows = torch.where(rows >= 0, rows, dummy_group).to(torch.int32)
+    return rows.contiguous(), starts.contiguous(), ends.contiguous(), dropped
+
+
+def apply_grouped_updates_plain(pool_flat, sorted_keys, *, num_groups: int, cells_per_group: int,
+                                hit_odds: float, miss_odds: float, dummy_group: int):
+    """Plain PyTorch version of `apply_grouped_updates` (K1's plain version
+    under the same tables); updates `pool_flat` in place."""
+    rows, starts, ends, dropped = _dense_tables(
+        sorted_keys, num_groups, cells_per_group, pool_flat.shape[0] // cells_per_group,
+        dummy_group)
+    apply_grouped_rows_plain(pool_flat, rows, starts, ends, sorted_keys,
+                             cells_per_group=cells_per_group, hit_odds=hit_odds,
+                             miss_odds=miss_odds)
+    return pool_flat, dropped
+
+
+def apply_grouped_updates(pool_flat, sorted_keys, *, num_groups: int, cells_per_group: int,
+                          hit_odds: float, miss_odds: float, dummy_group: int):
+    """K1's dense-bank entry (pallas_apply.py::apply_grouped_updates): apply
+    one insert's sorted packed keys `(group << cell_bits) | (cell << 1) |
+    is_hit` (sentinel-padded) to the bank, group id == bank row, in place.
+    `dummy_group` is a group no record touches (the bank's padding group);
+    unused steps park there and leave it unchanged. Returns (bank, dropped):
+    `dropped` () int32 counts touched groups beyond `num_groups`, lost whole.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if pool_flat.device.type == "cpu":
+        return apply_grouped_updates_plain(
+            pool_flat, sorted_keys, num_groups=num_groups, cells_per_group=cells_per_group,
+            hit_odds=hit_odds, miss_odds=miss_odds, dummy_group=dummy_group)
+    rows, starts, ends, dropped = _dense_tables(
+        sorted_keys, num_groups, cells_per_group, pool_flat.shape[0] // cells_per_group,
+        dummy_group)
+    # the kernel masks keys to the cell bits, so packed keys pass through
+    apply_grouped_rows(pool_flat, rows, starts, ends, sorted_keys.contiguous(),
+                       cells_per_group=cells_per_group, hit_odds=hit_odds, miss_odds=miss_odds,
+                       dense=True)
+    return pool_flat, dropped

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 MIN_DISTANCE = 0.2
@@ -69,3 +70,39 @@ def compute_histogram(points: torch.Tensor, mask: torch.Tensor, num_buckets: int
     hist = torch.zeros(num_buckets + 1, dtype=torch.float32, device=dev)
     hist.index_add_(0, bucket.long(), torch.where(keep, value, 0.0))
     return hist[:num_buckets]
+
+
+def rotate_histogram(histogram: torch.Tensor, angle) -> torch.Tensor:
+    """Rotate by `angle` (scalar or (A,) batch) with linear interpolation of
+    fractional buckets (RotateHistogram, rotational_scan_matcher.cc:118-140);
+    returns (n,) or (A, n)."""
+    n = histogram.shape[-1]
+    angle = torch.as_tensor(angle, dtype=torch.float32, device=histogram.device)
+    rotate_by = -angle * n / math.pi
+    full = torch.round(rotate_by - 0.5).to(torch.int64)
+    frac = (rotate_by - full)[..., None]
+    idx = torch.arange(n, device=histogram.device)
+    src0 = torch.remainder(idx + full[..., None], n)
+    src1 = torch.remainder(idx + full[..., None] + 1, n)
+    return (1.0 - frac) * histogram[src0] + frac * histogram[src1]
+
+
+def match_histograms(histogram: torch.Tensor, reference: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Cosine similarity of `histogram` rotated by each angle vs `reference`
+    (RotationalScanMatcher::Match); (A,) scores, 1 for an empty histogram."""
+    rotated = rotate_histogram(histogram, angles)  # (A, n)
+    denom = torch.sqrt(torch.sum(rotated * rotated, dim=-1)) * torch.sqrt(torch.sum(reference * reference))
+    s = torch.sum(rotated * reference, dim=-1) / torch.clamp(denom, min=1e-12)
+    return torch.where(denom < 1e-12, 1.0, s)
+
+
+def np_rotate_histogram(histogram, angle: float):
+    """Host numpy mirror of rotate_histogram for node-rate pose-graph
+    bookkeeping."""
+    histogram = np.asarray(histogram)
+    n = histogram.shape[0]
+    rotate_by = -float(angle) * n / np.pi
+    full = int(np.round(rotate_by - 0.5))
+    frac = rotate_by - full
+    idx = np.arange(n)
+    return (1.0 - frac) * histogram[np.mod(idx + full, n)] + frac * histogram[np.mod(idx + full + 1, n)]

@@ -1,5 +1,6 @@
-"""Fixed-capacity point clouds (numpy copy of the part of
-dliom_tpu/sensor/types.py that drives the LIO step, with no jax).
+"""Sensor data types (port of dliom_tpu/sensor/types.py): fixed-capacity
+batches with an explicit validity mask. `pad_point_cloud` is host-side
+numpy; the others hold tensors.
 
 Per-point relative times follow the reference convention (sensor_bridge.cc:
 last point = 0, earlier points negative, relative to the scan-end stamp).
@@ -10,6 +11,45 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+
+class ImuData(NamedTuple):
+    """A batch of IMU samples (time-ascending): time (N,),
+    linear_acceleration / angular_velocity (N, 3)."""
+
+    time: torch.Tensor
+    linear_acceleration: torch.Tensor
+    angular_velocity: torch.Tensor
+
+
+class OdometryData(NamedTuple):
+    time: torch.Tensor
+    rotation: torch.Tensor  # (N, 4) wxyz
+    translation: torch.Tensor  # (N, 3)
+
+
+class RangeData(NamedTuple):
+    """Deskewed range data in some frame: sensor origin (3,), hit points
+    (N, 3) with mask (N,), and the misses cloud with its own mask."""
+
+    origin: torch.Tensor
+    returns: torch.Tensor
+    returns_mask: torch.Tensor
+    misses: torch.Tensor
+    misses_mask: torch.Tensor
+
+    @staticmethod
+    def empty(capacity: int, miss_capacity: int | None = None, device=None) -> "RangeData":
+        miss_capacity = capacity if miss_capacity is None else miss_capacity
+        f32 = dict(dtype=torch.float32, device=device)
+        return RangeData(
+            origin=torch.zeros(3, **f32),
+            returns=torch.zeros(capacity, 3, **f32),
+            returns_mask=torch.zeros(capacity, dtype=torch.bool, device=device),
+            misses=torch.zeros(miss_capacity, 3, **f32),
+            misses_mask=torch.zeros(miss_capacity, dtype=torch.bool, device=device),
+        )
 
 
 class TimedPointCloud(NamedTuple):

@@ -128,6 +128,23 @@ def quat_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def quat_from_rotation_matrix(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> quaternion (..., 4), Shepperd's
+    method on all four branches, selected with `where`."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, m21 - m12, m02 - m20, m10 - m01], dim=-1)
+    qx = torch.stack([m21 - m12, 1.0 + m00 - m11 - m22, m01 + m10, m02 + m20], dim=-1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1.0 - m00 + m11 - m22, m12 + m21], dim=-1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1.0 - m00 - m11 + m22], dim=-1)
+    cs = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], dim=-1)
+    best = torch.argmax(cs, dim=-1)[..., None]
+    q = torch.where(best == 0, qw, torch.where(best == 1, qx, torch.where(best == 2, qy, qz)))
+    return quat_normalize(q)
+
+
 def quat_slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
     """Spherical linear interpolation from a (t=0) to b (t=1); nlerp for
     nearly parallel quaternions. `t` broadcasts."""
@@ -187,6 +204,16 @@ def so3_hat(v: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def so3_exp(v: torch.Tensor) -> torch.Tensor:
+    """Rotation-vector exponential to a rotation matrix."""
+    return quat_to_rotation_matrix(quat_from_axis_angle(v))
+
+
+def so3_log(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix log to a rotation vector."""
+    return quat_to_axis_angle(quat_from_rotation_matrix(m))
+
+
 class Rigid3(NamedTuple):
     """Rotation quaternion (..., 4) wxyz + translation (..., 3)."""
 
@@ -225,6 +252,17 @@ class Rigid3(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+def np_rigid(p: Rigid3, dtype=_np.float64) -> Rigid3:
+    """Rigid3 re-backed by numpy arrays (one device-to-host copy if its
+    parts are tensors)."""
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return _np.asarray(x, dtype)
+
+    return Rigid3(host(p.rotation), host(p.translation))
+
+
 def np_quat_multiply(a: _np.ndarray, b: _np.ndarray) -> _np.ndarray:
     aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
     bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
@@ -259,6 +297,11 @@ def np_quat_from_axis_angle(axis_angle: _np.ndarray) -> _np.ndarray:
     return _np.concatenate([[math.cos(0.5 * angle)], math.sin(0.5 * angle) / angle * v])
 
 
+def np_quat_yaw(q: _np.ndarray) -> float:
+    d = np_quat_rotate(q, _np.asarray([1.0, 0.0, 0.0], dtype=q.dtype))
+    return float(_np.arctan2(d[..., 1], d[..., 0]))
+
+
 def np_compose(a: Rigid3, b: Rigid3) -> Rigid3:
     """a ∘ b on numpy-backed Rigid3 (see Rigid3.compose)."""
     q = np_quat_multiply(_np.asarray(a.rotation), _np.asarray(b.rotation))
@@ -273,3 +316,20 @@ def np_compose(a: Rigid3, b: Rigid3) -> Rigid3:
 def np_inverse(a: Rigid3) -> Rigid3:
     rot_inv = np_quat_conjugate(_np.asarray(a.rotation))
     return Rigid3(rotation=rot_inv, translation=-np_quat_rotate(rot_inv, _np.asarray(a.translation)))
+
+
+def np_quat_slerp(a: _np.ndarray, b: _np.ndarray, t: float) -> _np.ndarray:
+    """Host numpy mirror of quat_slerp for scalar t (bookkeeping paths)."""
+    a = _np.asarray(a, _np.float64)
+    b = _np.asarray(b, _np.float64)
+    dot = float(_np.dot(a, b))
+    if dot < 0.0:
+        b, dot = -b, -dot
+    dot = min(dot, 1.0)
+    if dot > 1.0 - 1e-6:
+        out = (1.0 - t) * a + t * b
+    else:
+        theta = _np.arccos(min(dot, 1.0 - 1e-7))
+        sin_theta = max(_np.sin(theta), 1e-12)
+        out = _np.sin((1.0 - t) * theta) / sin_theta * a + _np.sin(t * theta) / sin_theta * b
+    return out / max(float(_np.linalg.norm(out)), 1e-12)

@@ -107,3 +107,62 @@ def test_affine_chain_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(p_k, p_p, rtol=1e-5, atol=1e-6)
     assert torch.equal(a_1, a_k[1]) and torch.equal(p_1, p_k[1])
+
+
+def _dense_keys(rng, groups_touched, num_records, cpg=16384):
+    """Sorted packed keys over `groups_touched` groups of a dense bank, with
+    duplicate cells, mixed hit/miss and sentinel padding."""
+    group = rng.integers(0, groups_touched, num_records).astype(np.int32)
+    cell = (rng.integers(0, cpg // 4, num_records) * 4).astype(np.int32)
+    hit = rng.integers(0, 2, num_records).astype(np.int32)
+    valid = torch.from_numpy(rng.random(num_records) < 0.95)
+    keys = K1.pack_keys(torch.from_numpy(group), torch.from_numpy(cell), torch.from_numpy(hit),
+                        valid, cpg)
+    return torch.sort(keys).values
+
+
+@pytest.mark.parametrize("extent,capacity,touched", [(128, 256, 256), (128, 64, 200),
+                                                     (128, 256, 100), (64, 256, 32)])
+def test_dense_grouped_updates_kernel_matches_plain(cuda_device, extent, capacity, touched):
+    """K1's dense entry at bench_e2e's 2 x 128^3 and 2 x 64^3 banks with
+    their padding group: bank and `dropped` bit-identical to the plain
+    version (64 of 200 touched groups overflow in the second case; the last
+    two park 156 and 224 steps on the padding group), and the padding group
+    comes back unchanged."""
+    rng = np.random.default_rng(capacity + touched)
+    cpg, groups = 16384, 2 * extent ** 3 // 16384 + 1
+    bank = torch.from_numpy(rng.integers(0, 32768, groups * cpg).astype(np.int16)).to(cuda_device)
+    keys = _dense_keys(rng, touched, 49152).to(cuda_device)
+    kw = dict(num_groups=capacity, cells_per_group=cpg, hit_odds=0.55 / 0.45,
+              miss_odds=0.49 / 0.51, dummy_group=groups - 1)
+    launches, dense = K1.LAUNCHES, K1.DENSE_LAUNCHES
+    k, kd = K1.apply_grouped_updates(bank.clone(), keys, **kw)
+    p, pd = K1.apply_grouped_updates_plain(bank.clone(), keys, **kw)
+    torch.cuda.synchronize()
+    assert K1.LAUNCHES == launches + 1 and K1.DENSE_LAUNCHES == dense + 1
+    assert torch.equal(k, p)
+    assert int(kd) == int(pd) == max(0, touched - capacity)
+    assert torch.equal(k[-cpg:], bank[-cpg:])
+    assert not torch.equal(k, bank)
+
+
+def test_dense_insert_cuda_matches_cpu(cuda_device):
+    """The dense grouped insert (`_insert_slots`: records, sort, tables, K1)
+    on the card against the CPU run of the same code, where K1 runs plain."""
+    from dliom_tpu_torch.mapping.grid import GridSpec
+    from dliom_tpu_torch.ops.grid_update import _insert_slots
+
+    spec = GridSpec(0.2, 64, 32)
+    rng = np.random.default_rng(2)
+    kw = dict(spec=spec, hit_probability=0.55, miss_probability=0.49, num_free_space_voxels=2)
+    cpu = torch.zeros(K1.dense_bank_size(spec.num_cells, 2, 32), dtype=torch.int16)
+    gpu = cpu.to(cuda_device)
+    for _ in range(3):
+        hits = torch.from_numpy(rng.normal(0, 3.0, (2, 2048, 3)).astype(np.float32))
+        masks = torch.from_numpy(rng.random((2, 2048)) < 0.9)
+        origins = torch.from_numpy(rng.normal(0, 0.3, (2, 3)).astype(np.float32))
+        _, dc = _insert_slots(cpu, origins, hits, masks, **kw)
+        _, dg = _insert_slots(gpu, origins.to(cuda_device), hits.to(cuda_device),
+                              masks.to(cuda_device), **kw)
+        assert int(dc) == int(dg)
+    assert torch.equal(gpu.cpu(), cpu)
