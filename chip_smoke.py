@@ -10,7 +10,8 @@ Phases, in order; any failed check raises and the exit code is non-zero:
   3. K1 (grouped grid-update apply) against its plain PyTorch version at
      the bench config's two brick shapes, bit for bit, and both timed;
   4. K2 (IMU affine chain) against its plain version, rtol 1e-5 / atol
-     1e-6, both timed;
+     1e-6, at M = 48 (the bench config), 64 (the default) and 200 (longer
+     than one warp's ring of samples), both timed;
   5. the slice: `lio_step` at the bench config (bench.py's
      build_config values, 32768 raw points and 48 IMU samples per scan,
      the synthetic corkscrew with bench.py's IMU recipe), 2 warm-up scans
@@ -24,8 +25,12 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      2 x 64^3 low bank, each plus the padding group; 256 steps, 49152
      records), bit for bit, `dropped` included, the padding group
      unchanged: all steps used, steps parked on the padding group (the
-     low bank parks most of its steps on every insert), and a
-     capacity-overflow case; both timed;
+     low bank parks most of its steps on every insert), a
+     capacity-overflow case and the table kernel's edge cases (all keys
+     sentinel, one group, exactly and one past the capacity, the last real
+     group beside the padding group, one group of more than 1024 records);
+     both timed, and the device kernels of one call counted with
+     torch.profiler (at most 2: the table kernel and K1);
   8. the mapping slice: `MapBuilder` on bench.py's bench_e2e course at
      bench_e2e's config (dense 0.2 m / 0.8 m grids, extents 128 / 64,
      dense_apply_groups 256, 2 background threads, pipeline_depth 1):
@@ -47,6 +52,16 @@ by 1e-2 (PERF.md, Findings), so a free-running comparison would
 measure that sensitivity, not the port. For the same reason the banks are
 compared at K1's dense entry, from the card's own inputs: a CPU step
 inserts at a pose that differs from the card's in the last bits.
+
+Kernel times (phases 3, 4 and 7): `ms` is the host clock around one call
+with a synchronize either side (median of REPEATS); `event_ms` is CUDA
+events around EVENT_LAUNCHES back-to-back calls after a warm-up, per call
+(the card waits on the host where the wrapper's dispatch is the slower);
+`graph_ms` is the same calls captured in one CUDA graph and replayed, per
+call: device time without host dispatch. `bound_ms` is the least time the
+card could take for the work of those inputs: bytes (each input read once,
+each output written once, counted from the data) over 3.35 TB/s, or
+float32 operations over 67 TFLOP/s, whichever is larger.
 
 Phase 8's timed stretch is TIMED_E2E scans, not bench.py's full lap: the
 whole script must stay well inside its time limit (PERF.md says so).
@@ -78,6 +93,11 @@ TIMED = 104  # crosses the spawn at the 100th inserted scan
 COMPARE = 3  # scans compared with the CPU run
 POSE_ATOL = 2e-3  # m and quaternion components, as tests/test_torch_lio.py
 REPEATS = 25
+EVENT_LAUNCHES = 200  # calls per CUDA-event timing (phases 3, 4, 7)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores, the same
+K2_LENGTHS = (48, 64, 200)  # IMU samples per chain: bench config, default, long
+PROFILED_CALLS = 20  # dense-entry calls under torch.profiler (phase 7)
 PROFILED = 3  # scans under torch.profiler after the timed run (phase 6)
 E2E_STATIC = 16  # bench.py: round(1.6 / scan_period) stationary scans
 E2E_WARM = 235  # bench.py: round(1.12 * lap), lap = 2 pi 5 m / 1.5 m/s / 0.1 s
@@ -169,6 +189,102 @@ def timed_median(fn, repeats=REPEATS):
     return float(np.median(times))
 
 
+def event_ms(fn, launches=EVENT_LAUNCHES):
+    """Per call: CUDA events around `launches` back-to-back calls of fn()
+    after a warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def graph_ms(fn, launches=EVENT_LAUNCHES):
+    """Per call: `launches` calls of fn() captured in one CUDA graph, whose
+    replay is timed with CUDA events (no host dispatch inside)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def bound(nbytes, flops=0.0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float32 operations over the peak rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def k1_bytes(starts, ends, keys, fresh, cpg):
+    """Bytes K1 must move for these tables: 16 per step (rows, starts, ends,
+    fresh), each record read once (4), and per step each distinct touched
+    cell read and written (2 + 2), or its whole group written once (2 per
+    cell) when the step is fresh."""
+    s, e, k, f = (x.cpu().numpy() for x in (starts, ends, keys, fresh))
+    total = 16 * len(s)
+    for a, b, fr in zip(s, e, f):
+        total += 4 * max(0, b - a)
+        if fr:
+            total += 2 * cpg
+        elif b > a:
+            total += 4 * len(np.unique((k[a:b] >> 1) & (cpg - 1)))
+    return total
+
+
+def k1_dense_bytes(keys, num_groups, cpg, cb):
+    """Bytes K1's dense entry must move: every key read once (4), each
+    distinct touched cell of the kept groups read and written (2 + 2),
+    `dropped` written (4)."""
+    k = keys.cpu().numpy()
+    k = k[k != 2**31 - 1]
+    kept = np.unique(k >> cb)[:num_groups]
+    k = k[np.isin(k >> cb, kept)]
+    return 4 * keys.numel() + 4 * len(np.unique(k >> 1)) + 4
+
+
+def k2_work(batch, m):
+    """(bytes, float32 operations) of the chain: F and Q read, A and P
+    written; per sample three 15x15 products (2 x 15^3 each) and Q's add."""
+    return 2 * batch * (m + 1) * 225 * 4, batch * m * (6 * 15 ** 3 + 225)
+
+
+def device_events(events):
+    """The device-side activities of a profile (kernels, copies, sets),
+    without the projections of host spans onto the device timeline."""
+    from torch.autograd import DeviceType
+
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    return [e for e in events if e.device_type == DeviceType.CUDA and e.name not in host_names
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def timings(fn, plain):
+    """The kernel's `ms`, `event_ms` and `graph_ms`, and the plain
+    version's `plain_ms` (host clock, as `ms`)."""
+    return {"ms": timed_median(fn), "event_ms": event_ms(fn), "graph_ms": graph_ms(fn),
+            "plain_ms": timed_median(plain)}
+
+
+def fmt_times(t):
+    return (f"kernel {t['ms']:.4f} ms (events {t['event_ms']:.4f} ms, graph {t['graph_ms']:.4f} ms), "
+            f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+
+
 def environment():
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
@@ -221,29 +337,32 @@ def check_grouped_apply(ga, rng):
         check(torch.equal(k, p), f"K1 {tag}: kernel bank differs from plain ({err})")
         check(not torch.equal(k, bank), f"K1 {tag}: nothing changed")
         work = bank.clone()
-        ms = timed_median(lambda: ga.apply_grouped_rows(work, rows, starts, ends, keys, **kw))
-        plain_ms = timed_median(lambda: ga.apply_grouped_rows_plain(work, rows, starts, ends, keys, **kw))
+        t = timings(lambda: ga.apply_grouped_rows(work, rows, starts, ends, keys, **kw),
+                    lambda: ga.apply_grouped_rows_plain(work, rows, starts, ends, keys, **kw))
+        t["bound_ms"], t["bound_by"] = bound(k1_bytes(starts, ends, keys, fresh, cpg))
         print(f"K1 grouped_apply {tag}: cpg {cpg} steps {steps} records {int(ends[-1])}: "
-              f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[tag] = (err, ms, plain_ms)
+              f"bit-identical; {fmt_times(t)}")
+        out[tag] = dict(t, max_abs_err=err)
     return out
 
 
 def check_affine_chain(ac, rng):
-    f = torch.from_numpy((np.eye(15) + 0.01 * rng.normal(size=(IMU_CAP, 15, 15))).astype(np.float32)).cuda()
-    q = rng.normal(size=(IMU_CAP, 15, 15)).astype(np.float32) * 1e-3
-    q = torch.from_numpy(q @ np.swapaxes(q, 1, 2)).cuda()
-    a_k, p_k = ac.affine_chain(f, q)
-    a_p, p_p = ac.affine_chain_plain(f, q)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(p_k, p_p, rtol=1e-5, atol=1e-6)
-    err = float(max((a_k - a_p).abs().max(), (p_k - p_p).abs().max()))
-    ms = timed_median(lambda: ac.affine_chain(f, q))
-    plain_ms = timed_median(lambda: ac.affine_chain_plain(f, q))
-    print(f"K2 affine_chain M={IMU_CAP}: max abs err {err:.3e} (rtol 1e-5, atol 1e-6); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    out = {}
+    for m in K2_LENGTHS:
+        f = torch.from_numpy((np.eye(15) + 0.01 * rng.normal(size=(m, 15, 15))).astype(np.float32)).cuda()
+        q = rng.normal(size=(m, 15, 15)).astype(np.float32) * 1e-3
+        q = torch.from_numpy(q @ np.swapaxes(q, 1, 2)).cuda()
+        a_k, p_k = ac.affine_chain(f, q)
+        a_p, p_p = ac.affine_chain_plain(f, q)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(p_k, p_p, rtol=1e-5, atol=1e-6)
+        err = float(max((a_k - a_p).abs().max(), (p_k - p_p).abs().max()))
+        t = timings(lambda: ac.affine_chain(f, q), lambda: ac.affine_chain_plain(f, q))
+        t["bound_ms"], t["bound_by"] = bound(*k2_work(1, m))
+        print(f"K2 affine_chain M={m}: max abs err {err:.3e} (rtol 1e-5, atol 1e-6); {fmt_times(t)}")
+        out[m] = dict(t, max_abs_err=err)
+    return out
 
 
 def bench_scans(device):
@@ -374,46 +493,92 @@ def check_slice(ga, ac, dev):
     return launches, scans_per_s
 
 
+def dense_keys(ga, rng, groups, num_records, cpg, cells=None):
+    """One insert's sorted packed keys over the bank groups `groups`, each
+    touched at least once, with duplicate cells (4 apart, or only `cells`
+    distinct ones), mixed hit/miss and 5% sentinel records."""
+    group = np.asarray(groups, np.int32)[rng.integers(0, len(groups), num_records)]
+    group[:len(groups)] = groups
+    cell = rng.integers(0, cpg // 4, num_records) * 4 if cells is None else rng.integers(0, cells, num_records)
+    valid = rng.random(num_records) < 0.95
+    valid[:len(groups)] = True
+    keys = ga.pack_keys(torch.from_numpy(group), torch.from_numpy(cell.astype(np.int32)),
+                        torch.from_numpy(rng.integers(0, 2, num_records).astype(np.int32)),
+                        torch.from_numpy(valid), cpg)
+    return torch.sort(keys).values.cuda()
+
+
 def check_dense_grouped_apply(ga, rng):
     """Phase 7: K1's dense entry at bench_e2e's dense banks, one insert's
     49152 records: the high bank (2 x 128^3 cells plus the padding group =
     257 groups of 16384) with all 256 steps used, with 100 groups touched
     (156 steps park on the padding group) and with 200 touched at capacity
     64 (136 dropped); the low bank (2 x 64^3 plus padding = 33 groups) at
-    256 steps, where 224 steps park, as on every insert of phase 8."""
+    256 steps, where 224 steps park, as on every insert of phase 8; then the
+    table kernel's edge cases on the high bank. Returns the timed cases and
+    the device kernels of one call (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
     cpg = ga.DENSE_CELLS_PER_GROUP
-    out = {}
-    for tag, extent, capacity, touched in (("dense", 128, 256, 256), ("dense_park", 128, 256, 100),
-                                           ("dense_overflow", 128, 64, 200),
-                                           ("dense_low", 64, 256, 32)):
+    cases = [  # tag, extent, capacity, touched groups, records, distinct cells, timed
+        ("dense", 128, 256, range(256), 49152, None, True),
+        ("dense_park", 128, 256, range(100), 49152, None, True),
+        ("dense_overflow", 128, 64, range(200), 49152, None, True),
+        ("dense_low", 64, 256, range(32), 49152, None, True),
+        ("all_sentinel", 128, 256, [], 49152, None, False),
+        ("one_group", 128, 256, [17], 49152, None, False),
+        ("exact_capacity", 128, 64, range(0, 256, 4), 49152, None, False),
+        ("capacity_plus_one", 128, 64, range(0, 260, 4), 49152, None, False),
+        ("last_real_group", 128, 256, [3, 254, 255], 49152, None, False),
+        ("duplicate_heavy", 128, 256, [9, 10], 3000, 12, False),
+    ]
+    out, kernels_per_call = {}, None
+    for tag, extent, capacity, touched, records, cells, timed in cases:
+        touched = list(touched)
         groups = 2 * extent ** 3 // cpg + 1
         kw = dict(cells_per_group=cpg, hit_odds=0.55 / 0.45, miss_odds=0.49 / 0.51,
-                  dummy_group=groups - 1)
+                  dummy_group=groups - 1, num_groups=capacity)
         bank = torch.from_numpy(rng.integers(0, 32768, groups * cpg).astype(np.int16)).cuda()
-        group = rng.integers(0, touched, 49152).astype(np.int32)
-        cell = (rng.integers(0, cpg // 4, 49152) * 4).astype(np.int32)
-        keys = ga.pack_keys(torch.from_numpy(group), torch.from_numpy(cell),
-                            torch.from_numpy(rng.integers(0, 2, 49152).astype(np.int32)),
-                            torch.from_numpy(rng.random(49152) < 0.95), cpg)
-        keys = torch.sort(keys).values.cuda()
-        k, kd = ga.apply_grouped_updates(bank.clone(), keys, num_groups=capacity, **kw)
-        p, pd = ga.apply_grouped_updates_plain(bank.clone(), keys, num_groups=capacity, **kw)
+        if touched:
+            keys = dense_keys(ga, rng, touched, records, cpg, cells)
+        else:
+            keys = torch.full((records,), 2**31 - 1, dtype=torch.int32).cuda()
+        k, kd = ga.apply_grouped_updates(bank.clone(), keys, **kw)
+        p, pd = ga.apply_grouped_updates_plain(bank.clone(), keys, **kw)
         torch.cuda.synchronize()
         err = int((k.int() - p.int()).abs().max())
         check(torch.equal(k, p), f"K1 {tag}: kernel bank differs from plain ({err})")
-        check(int(kd) == int(pd) == touched - min(touched, capacity),
+        check(int(kd) == int(pd) == max(0, len(touched) - capacity),
               f"K1 {tag}: dropped {int(kd)} (kernel) vs {int(pd)} (plain)")
         check(torch.equal(k[-cpg:], bank[-cpg:]), f"K1 {tag}: padding group changed")
-        check(not torch.equal(k[:-cpg], bank[:-cpg]), f"K1 {tag}: nothing changed")
+        check(torch.equal(k, bank) == (not touched), f"K1 {tag}: the bank changed where it should")
+        line = (f"K1 apply_grouped_updates {tag}: {groups} groups, {capacity} steps, "
+                f"{len(touched)} touched, {max(0, capacity - len(touched))} parked, dropped {int(kd)}: "
+                f"bit-identical, padding group unchanged")
+        if not timed:
+            print(line)
+            continue
         work = bank.clone()
-        ms = timed_median(lambda: ga.apply_grouped_updates(work, keys, num_groups=capacity, **kw))
-        plain_ms = timed_median(lambda: ga.apply_grouped_updates_plain(work, keys, num_groups=capacity,
-                                                                       **kw))
-        print(f"K1 apply_grouped_updates {tag}: {groups} groups, {capacity} steps, "
-              f"{touched} touched, {max(0, capacity - touched)} parked, dropped {int(kd)}: "
-              f"bit-identical, padding group unchanged; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        out[tag] = (err, ms, plain_ms)
-    return out
+        if kernels_per_call is None:
+            # one warm-up cycle, then one recorded cycle: after phase 6's
+            # profile, a profile without a warm-up lost the device events
+            # at its start (it saw none of one call's two kernels)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                          repeat=1)) as prof:
+                for _ in range(2):
+                    for _ in range(PROFILED_CALLS):
+                        ga.apply_grouped_updates(work, keys, **kw)
+                    torch.cuda.synchronize()
+                    prof.step()
+            kernels_per_call = len(device_events(prof.events())) / PROFILED_CALLS
+            line += f"; {kernels_per_call:g} device kernels per call"
+        t = timings(lambda: ga.apply_grouped_updates(work, keys, **kw),
+                    lambda: ga.apply_grouped_updates_plain(work, keys, **kw))
+        t["bound_ms"], t["bound_by"] = bound(k1_dense_bytes(keys, capacity, cpg, ga.cell_bits(cpg)))
+        print(f"{line}; {fmt_times(t)}")
+        out[tag] = dict(t, max_abs_err=err)
+    return out, kernels_per_call
 
 
 def e2e_course(n_scans):
@@ -469,11 +634,7 @@ def card_busy_ms(events):
     annotations are left out, so only kernels, copies and sets count."""
     from collections import Counter
 
-    from torch.autograd import DeviceType
-
-    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
-    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in host_names
-              and not getattr(e, "is_user_annotation", False)]
+    device = device_events(events)
     ms, count = Counter(), Counter()
     for e in device:
         ms[e.name] += e.time_range.elapsed_us() / 1e3
@@ -700,27 +861,33 @@ def main():
     k1 = check_grouped_apply(ga, rng)
     k2 = check_affine_chain(ac, rng)
     launches, scans_per_s = check_slice(ga, ac, get_device("cuda"))
-    k1d = check_dense_grouped_apply(ga, rng)
+    k1d, dense_kernels = check_dense_grouped_apply(ga, rng)
+    check(0 < dense_kernels <= 2, f"K1 dense entry: {dense_kernels} device kernels per call, "
+          "not 1 or 2")
     map_launches, mapping = check_mapping(ga, ac, get_device("cuda"))
     check("jax" not in sys.modules, "no jax imported")
 
     print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "mapping": mapping,
-                      "grouped_apply_by_shape": {t: {"max_abs_err": v[0], "ms": v[1], "plain_ms": v[2]}
-                                                 for t, v in {**k1, **k1d}.items()}}))
+                      "dense_kernels_per_call": dense_kernels,
+                      "grouped_apply_by_shape": {**k1, **k1d},
+                      "affine_chain_by_length": k2}))
+
+    def record(name, source, replaces, n, timed, err):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
+                "max_abs_err": err, **{k: timed[k] for k in ("ms", "event_ms", "graph_ms", "plain_ms",
+                                                              "bound_ms", "bound_by")},
+                "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "grouped_apply", "route": "cuda", "source": "dliom_tpu_torch/csrc/grouped_apply.cu",
-         "replaces": "dliom_tpu/ops/pallas_apply.py:257", "launches": launches["grouped_apply"],
-         "max_abs_err": max(v[0] for v in k1.values()),
-         "ms": k1["high_spawn"][1], "plain_ms": k1["high_spawn"][2]},
-        {"name": "affine_chain", "route": "cuda", "source": "dliom_tpu_torch/csrc/affine_chain.cu",
-         "replaces": "dliom_tpu/imu/preintegration.py:102", "launches": launches["affine_chain"],
-         "max_abs_err": k2[0], "ms": k2[1], "plain_ms": k2[2]},
-        {"name": "grouped_apply_dense", "route": "cuda",
-         "source": "dliom_tpu_torch/csrc/grouped_apply.cu",
-         "replaces": "dliom_tpu/ops/pallas_apply.py:215",
-         "launches": map_launches["grouped_apply_dense"],
-         "max_abs_err": max(v[0] for v in k1d.values()),
-         "ms": k1d["dense"][1], "plain_ms": k1d["dense"][2]},
+        record("grouped_apply", "dliom_tpu_torch/csrc/grouped_apply.cu",
+               "dliom_tpu/ops/pallas_apply.py:257", launches["grouped_apply"], k1["high_spawn"],
+               max(v["max_abs_err"] for v in k1.values())),
+        record("affine_chain", "dliom_tpu_torch/csrc/affine_chain.cu",
+               "dliom_tpu/imu/preintegration.py:102", launches["affine_chain"], k2[IMU_CAP],
+               max(v["max_abs_err"] for v in k2.values())),
+        record("grouped_apply_dense", "dliom_tpu_torch/csrc/grouped_apply.cu",
+               "dliom_tpu/ops/pallas_apply.py:215", map_launches["grouped_apply_dense"], k1d["dense"],
+               max(v["max_abs_err"] for v in k1d.values())),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -50,6 +50,7 @@ from dliom_tpu_torch.backend.submap_projection import (
     proposal_to_initial_guess,
 )
 from dliom_tpu_torch.common.config import PoseGraphConfig, TrajectoryBuilderConfig
+from dliom_tpu_torch.common.device import get_device
 from dliom_tpu_torch.mapping.submap import grid_specs
 from dliom_tpu_torch.ops.rotational_histogram import np_rotate_histogram
 from dliom_tpu_torch.ops.scan_matcher import match_batch as gn_match_batch
@@ -122,10 +123,11 @@ class PoseGraph:
                  metrics=None, device=None):
         """`pool`: optional native TaskThreadPool; loop searches and the
         periodic SPA then run as background tasks. `device`: where the
-        search and solve run (default CPU)."""
+        search and solve run: the CUDA card by default (raises where there is
+        none), "cpu" on request."""
         self.cfg = cfg
         self.tb_cfg = tb_cfg
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = get_device("cuda" if device is None else device)
         self.nodes: List[NodeRecord] = []
         self.submaps: List[SubmapRecord] = []
         self.constraints: List[Constraint] = []

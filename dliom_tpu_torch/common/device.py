@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 
-def get_device(name: str = "cuda") -> torch.device:
+def get_device(name: str | torch.device = "cuda") -> torch.device:
     """`torch.device(name)`; raises when CUDA is asked for and absent."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():

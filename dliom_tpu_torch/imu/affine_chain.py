@@ -3,7 +3,10 @@
 Port of the TPU Pallas kernel dliom_tpu/imu/preintegration.py::
 _pallas_affine_chain: from A = I and P = 0, for i = 1..M in order,
 A <- F_i A and P <- F_i P F_i^T + Q_i over (M, 15, 15) float32 inputs
-(masked samples arrive as (I, 0)). The kernel is csrc/affine_chain.cu.
+(masked samples arrive as (I, 0)). The kernel, csrc/affine_chain.cu, is a
+scan over time: warps compose contiguous chunks of samples, then the chunk
+results combine in a tree. That sums in another order than the sequential
+plain version, so the two agree to rtol 1e-5 / atol 1e-6, not bit for bit.
 """
 
 from __future__ import annotations

@@ -34,6 +34,9 @@ _SIGNATURES = {
     # bank, rows, starts, ends, fresh, keys, hit_table, miss_table,
     # num_steps, cells_per_group, stream
     "dliom_grouped_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # bank, keys, num_keys, hit_table, miss_table, scratch, num_groups,
+    # cells_per_group, shift, dummy_group, stream
+    "dliom_grouped_apply_dense": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # f, q, a_out, p_out, batch, m, stream
     "dliom_affine_chain": [_P, _P, _P, _P, _I, _I, _P],
 }

@@ -39,6 +39,7 @@ import torch
 from dliom_tpu_torch.backend.compression import compress
 from dliom_tpu_torch.backend.pose_graph import NodeRecord, PoseGraph
 from dliom_tpu_torch.common.config import EngineConfig
+from dliom_tpu_torch.common.device import get_device
 from dliom_tpu_torch.frontend.lio import LioScanInput, LioState, lio_step, make_lio_state
 from dliom_tpu_torch.imu import preintegration as pre
 from dliom_tpu_torch.imu.initialization import static_initialize
@@ -531,13 +532,14 @@ class MapBuilder:
         native task pool of map_builder.num_background_threads workers.
         `use_native_collator`: ingest merges through the native
         OrderedMultiQueue. `pipeline_depth=1` defers each scan's host read
-        to the next scan. `device`: where the frontend and backend run."""
+        to the next scan. `device`: where the frontend and backend run; the
+        CUDA card by default (raises where there is none), "cpu" on request."""
         if not config.map_builder.use_trajectory_builder_3d:
             raise ValueError("only the 3D pipeline is built; set "
                              "map_builder.use_trajectory_builder_3d=True")
         self.config = config
         self.tb = config.trajectory_builder
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = get_device("cuda" if device is None else device)
         self._pipeline_depth = int(pipeline_depth)
         self.local_slam_latency_seconds: List[float] = []
         self._metrics = register_all_metrics(global_registry())

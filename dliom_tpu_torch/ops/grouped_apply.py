@@ -1,5 +1,7 @@
 """K1: the grouped grid-update apply, CUDA kernel and plain version, with
-the host-side table helpers (port of dliom_tpu/ops/pallas_apply.py).
+the step-table helpers (port of dliom_tpu/ops/pallas_apply.py). The dense
+entry's tables are a kernel on the card and `_dense_tables` in the plain
+version.
 
 The grid bank is viewed as groups of `cells_per_group` int16 cells. One
 insert's update records are sorted int32 keys `cell << 1 | is_hit` whose
@@ -31,9 +33,11 @@ _SENTINEL = 2**31 - 1
 # extra group of padding at their end, the kernel's parking row.
 DENSE_CELLS_PER_GROUP = 16384
 
-# Kernel launches through `apply_grouped_rows` (plain-version calls not counted).
+# K1 launches through `apply_grouped_rows` and `apply_grouped_updates`
+# (plain-version calls not counted).
 LAUNCHES = 0
-# Of those, launches through the dense-bank entry `apply_grouped_updates`.
+# Of those, launches through the dense-bank entry `apply_grouped_updates`
+# (each with its table kernel before it).
 DENSE_LAUNCHES = 0
 
 
@@ -130,13 +134,28 @@ def apply_grouped_rows_plain(pool_flat, rows, starts, ends, cell_keys, *,
     return pool_flat
 
 
+def _check_bank(pool_flat: torch.Tensor, cells_per_group: int, what: str) -> None:
+    """Raise unless `pool_flat` is a bank the kernel takes."""
+    if cells_per_group & (cells_per_group - 1) or cells_per_group < 256:
+        raise ValueError(f"cells_per_group must be a power of two >= 256, got {cells_per_group}")
+    if pool_flat.dtype != torch.int16 or not pool_flat.is_contiguous():
+        raise ValueError(f"{what}: bank must be a contiguous int16 tensor")
+    if pool_flat.numel() % cells_per_group or pool_flat.data_ptr() % 16:
+        raise ValueError(f"{what}: bank must hold whole 16-byte aligned groups")
+
+
+def _check_int32(what: str, name: str, t: torch.Tensor, n: int, device: torch.device) -> None:
+    if t.dtype != torch.int32 or t.device != device or t.dim() != 1 \
+            or t.shape[0] != n or not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be a contiguous int32 ({n},) tensor on {device}")
+
+
 def apply_grouped_rows(pool_flat, rows, starts, ends, cell_keys, *,
                        cells_per_group: int, hit_odds: float, miss_odds: float,
-                       fresh=None, dense: bool = False) -> torch.Tensor:
+                       fresh=None) -> torch.Tensor:
     """Row-level entry (the caller owns group -> pool-row translation).
     Updates `pool_flat` in place and returns it. CPU tensors take the plain
-    version; CUDA tensors launch the kernel. `dense` marks a launch from the
-    dense-bank entry, counted in DENSE_LAUNCHES too."""
+    version; CUDA tensors launch the kernel."""
     if pool_flat.device.type == "cpu":
         return apply_grouped_rows_plain(
             pool_flat, rows, starts, ends, cell_keys, cells_per_group=cells_per_group,
@@ -146,19 +165,11 @@ def apply_grouped_rows(pool_flat, rows, starts, ends, cell_keys, *,
     num_steps = rows.shape[0]
     if fresh is None:
         fresh = torch.zeros(num_steps, dtype=torch.int32, device=rows.device)
-    if cells_per_group & (cells_per_group - 1) or cells_per_group < 256:
-        raise ValueError(f"cells_per_group must be a power of two >= 256, got {cells_per_group}")
-    if pool_flat.dtype != torch.int16 or not pool_flat.is_contiguous():
-        raise ValueError("apply_grouped_rows: bank must be a contiguous int16 tensor")
-    if pool_flat.numel() % cells_per_group or pool_flat.data_ptr() % 16:
-        raise ValueError("apply_grouped_rows: bank must hold whole 16-byte aligned groups")
+    _check_bank(pool_flat, cells_per_group, "apply_grouped_rows")
     for name, t, n in (("rows", rows, num_steps), ("starts", starts, num_steps),
                        ("ends", ends, num_steps), ("fresh", fresh, num_steps),
                        ("keys", cell_keys, cell_keys.shape[0])):
-        if t.dtype != torch.int32 or t.device != pool_flat.device or t.dim() != 1 \
-                or t.shape[0] != n or not t.is_contiguous():
-            raise ValueError(f"apply_grouped_rows: {name} must be a contiguous int32 "
-                             f"({n},) tensor on {pool_flat.device}")
+        _check_int32("apply_grouped_rows", name, t, n, pool_flat.device)
     hit_t, miss_t = update_tables(float(hit_odds), float(miss_odds), pool_flat.device)
     lib = kernels.library()
     stream = torch.cuda.current_stream(pool_flat.device).cuda_stream
@@ -168,9 +179,8 @@ def apply_grouped_rows(pool_flat, rows, starts, ends, cell_keys, *,
         num_steps, cells_per_group, stream,
     )
     kernels.check(err, "grouped_apply")
-    global LAUNCHES, DENSE_LAUNCHES
+    global LAUNCHES
     LAUNCHES += 1
-    DENSE_LAUNCHES += int(dense)
     return pool_flat
 
 
@@ -214,16 +224,36 @@ def apply_grouped_updates(pool_flat, sorted_keys, *, num_groups: int, cells_per_
     `dummy_group` is a group no record touches (the bank's padding group);
     unused steps park there and leave it unchanged. Returns (bank, dropped):
     `dropped` () int32 counts touched groups beyond `num_groups`, lost whole.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version. On CUDA tensors the tables are a
+    kernel too: one allocation of scratch, then one C call that launches
+    the table kernel and K1 back to back; `dropped` is a view of the
+    scratch."""
     if pool_flat.device.type == "cpu":
         return apply_grouped_updates_plain(
             pool_flat, sorted_keys, num_groups=num_groups, cells_per_group=cells_per_group,
             hit_odds=hit_odds, miss_odds=miss_odds, dummy_group=dummy_group)
-    rows, starts, ends, dropped = _dense_tables(
-        sorted_keys, num_groups, cells_per_group, pool_flat.shape[0] // cells_per_group,
-        dummy_group)
-    # the kernel masks keys to the cell bits, so packed keys pass through
-    apply_grouped_rows(pool_flat, rows, starts, ends, sorted_keys.contiguous(),
-                       cells_per_group=cells_per_group, hit_odds=hit_odds, miss_odds=miss_odds,
-                       dense=True)
-    return pool_flat, dropped
+    if pool_flat.device.type != "cuda":
+        raise ValueError(f"apply_grouped_updates: unsupported device {pool_flat.device}")
+    _check_bank(pool_flat, cells_per_group, "apply_grouped_updates")
+    _check_int32("apply_grouped_updates", "sorted_keys", sorted_keys, sorted_keys.shape[0],
+                 pool_flat.device)
+    if sorted_keys.data_ptr() % 16:
+        raise ValueError("apply_grouped_updates: sorted_keys must be 16-byte aligned")
+    cb = cell_bits(cells_per_group)
+    g_total = pool_flat.shape[0] // cells_per_group
+    assert g_total << cb < 2**31, "packed key group id overflow"
+    if not 0 <= dummy_group < g_total or num_groups < 0:
+        raise ValueError(f"apply_grouped_updates: dummy_group {dummy_group} outside the bank's "
+                         f"{g_total} groups, or num_groups {num_groups} < 0")
+    hit_t, miss_t = update_tables(float(hit_odds), float(miss_odds), pool_flat.device)
+    scratch = torch.empty(3 * num_groups + 1, dtype=torch.int32, device=pool_flat.device)
+    err = kernels.library().dliom_grouped_apply_dense(
+        pool_flat.data_ptr(), sorted_keys.data_ptr(), sorted_keys.shape[0], hit_t.data_ptr(),
+        miss_t.data_ptr(), scratch.data_ptr(), num_groups, cells_per_group, cb, dummy_group,
+        torch.cuda.current_stream(pool_flat.device).cuda_stream,
+    )
+    kernels.check(err, "grouped_apply_dense")
+    global LAUNCHES, DENSE_LAUNCHES
+    LAUNCHES += 1
+    DENSE_LAUNCHES += 1
+    return pool_flat, scratch[3 * num_groups]

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from dliom_tpu_torch.common.config import load_config
 from dliom_tpu_torch.imu import affine_chain as K2
 from dliom_tpu_torch.mapping import brick_grid as TB
 from dliom_tpu_torch.ops import grouped_apply as K1
@@ -93,6 +94,29 @@ def test_brick_insert_cuda_matches_cpu(cuda_device):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
 
 
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("m", [1, 7, 48, 64, 200])
+def test_affine_chain_scan_lengths(cuda_device, m, batch):
+    """The scan at chain lengths below, at and above one sample per warp,
+    at the bench config's 48, the default 64, and 200 (more samples per
+    warp than its ring holds), with a masked tail of (I, 0) samples."""
+    rng = np.random.default_rng(m * 10 + batch)
+    f = np.eye(15) + 0.01 * rng.normal(size=(batch, m, 15, 15))
+    q = rng.normal(size=(batch, m, 15, 15)) * 1e-3
+    tail = m // 4
+    if tail:
+        f[:, -tail:] = np.eye(15)
+        q[:, -tail:] = 0.0
+    f, q = (torch.from_numpy(x.astype(np.float32)).to(cuda_device) for x in (f, q))
+    launches = K2.LAUNCHES
+    a_k, p_k = K2.affine_chain(f, q)
+    a_p, p_p = K2.affine_chain_plain(f, q)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES == launches + 1
+    torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(p_k, p_p, rtol=1e-5, atol=1e-6)
+
+
 def test_affine_chain_kernel_matches_plain(cuda_device):
     rng = np.random.default_rng(4)
     f = torch.from_numpy((np.eye(15) + 0.01 * rng.normal(size=(3, 48, 15, 15))).astype(np.float32))
@@ -109,13 +133,18 @@ def test_affine_chain_kernel_matches_plain(cuda_device):
     assert torch.equal(a_1, a_k[1]) and torch.equal(p_1, p_k[1])
 
 
-def _dense_keys(rng, groups_touched, num_records, cpg=16384):
+def _dense_keys(rng, groups_touched, num_records, cpg=16384, cells=None):
     """Sorted packed keys over `groups_touched` groups of a dense bank, with
-    duplicate cells, mixed hit/miss and sentinel padding."""
+    duplicate cells (4 apart, or `cells` distinct ones), mixed hit/miss and
+    sentinel padding; every group has a valid record."""
     group = rng.integers(0, groups_touched, num_records).astype(np.int32)
-    cell = (rng.integers(0, cpg // 4, num_records) * 4).astype(np.int32)
+    group[:groups_touched] = np.arange(groups_touched)
+    cell = rng.integers(0, cells, num_records) if cells else rng.integers(0, cpg // 4, num_records) * 4
+    cell = cell.astype(np.int32)
     hit = rng.integers(0, 2, num_records).astype(np.int32)
-    valid = torch.from_numpy(rng.random(num_records) < 0.95)
+    valid = rng.random(num_records) < 0.95
+    valid[:groups_touched] = True
+    valid = torch.from_numpy(valid)
     keys = K1.pack_keys(torch.from_numpy(group), torch.from_numpy(cell), torch.from_numpy(hit),
                         valid, cpg)
     return torch.sort(keys).values
@@ -146,6 +175,51 @@ def test_dense_grouped_updates_kernel_matches_plain(cuda_device, extent, capacit
     assert not torch.equal(k, bank)
 
 
+# The table kernel's edge cases on bench_e2e's 2 x 128^3 bank (256 groups
+# and the padding group 256): (capacity, touched groups, records, distinct
+# cells per group or None).
+DENSE_EDGE_CASES = {
+    "all_sentinel": (256, [], 49152, None),
+    "one_group": (256, [17], 49152, None),
+    "exact_capacity": (64, list(range(0, 256, 4)), 49152, None),
+    "capacity_plus_one": (64, list(range(0, 260, 4)), 49152, None),
+    "last_real_group": (256, [3, 254, 255], 49152, None),
+    "duplicate_heavy": (256, [9, 10], 3000, 12),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_EDGE_CASES))
+def test_dense_table_edge_cases_match_plain(cuda_device, name):
+    """The dense entry (table kernel, then K1) against its plain version:
+    bank and `dropped` bit-identical, the padding group unchanged, one
+    launch counted."""
+    capacity, touched, records, cells = DENSE_EDGE_CASES[name]
+    rng = np.random.default_rng(len(name))
+    cpg, groups = 16384, 257
+    bank = torch.from_numpy(rng.integers(0, 32768, groups * cpg).astype(np.int16)).to(cuda_device)
+    if touched:
+        keys = _dense_keys(rng, len(touched), records, cpg, cells)
+        # map group ids 0..len-1 onto the touched groups, keeping the order
+        cb = K1.cell_bits(cpg)
+        valid = keys != 2**31 - 1
+        remap = torch.tensor(touched, dtype=torch.int32)[torch.clamp(keys >> cb, max=len(touched) - 1).long()]
+        keys = torch.where(valid, (remap << cb) | (keys & ((1 << cb) - 1)), keys)
+    else:
+        keys = torch.full((records,), 2**31 - 1, dtype=torch.int32)
+    keys = keys.to(cuda_device)
+    kw = dict(num_groups=capacity, cells_per_group=cpg, hit_odds=0.55 / 0.45,
+              miss_odds=0.49 / 0.51, dummy_group=groups - 1)
+    launches, dense = K1.LAUNCHES, K1.DENSE_LAUNCHES
+    k, kd = K1.apply_grouped_updates(bank.clone(), keys, **kw)
+    p, pd = K1.apply_grouped_updates_plain(bank.clone(), keys, **kw)
+    torch.cuda.synchronize()
+    assert K1.LAUNCHES == launches + 1 and K1.DENSE_LAUNCHES == dense + 1
+    assert torch.equal(k, p)
+    assert int(kd) == int(pd) == max(0, len(touched) - capacity)
+    assert torch.equal(k[-cpg:], bank[-cpg:])
+    assert torch.equal(k, bank) == (not touched)
+
+
 def test_dense_insert_cuda_matches_cpu(cuda_device):
     """The dense grouped insert (`_insert_slots`: records, sort, tables, K1)
     on the card against the CPU run of the same code, where K1 runs plain."""
@@ -166,3 +240,11 @@ def test_dense_insert_cuda_matches_cpu(cuda_device):
                               masks.to(cuda_device), **kw)
         assert int(dc) == int(dg)
     assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_map_builder_defaults_to_the_card(cuda_device):
+    """Without `device`, MapBuilder and its PoseGraph run on the card."""
+    from dliom_tpu_torch.map_builder import MapBuilder
+
+    builder = MapBuilder(load_config("basic"))
+    assert builder.device.type == "cuda" and builder.pose_graph.device.type == "cuda"

@@ -79,6 +79,52 @@ def test_group_tables_and_keys():
     assert TP.dense_bank_size(32**3, 2, 8) == JP.dense_bank_size(32**3, 2, 8)
 
 
+# The dense entry's table edge cases: a bank of 4 groups of 16384 cells and
+# its padding group (4), capacity 3, 2048 keys: (groups touched, records
+# per touched group, distinct cells per group or None for spread cells).
+DENSE_EDGE_CASES = {
+    "all_sentinel": ([], 0, None),
+    "one_group": ([1], 600, None),
+    "exact_capacity": ([0, 1, 3], 400, None),
+    "capacity_plus_one": ([0, 1, 2, 3], 300, None),
+    "last_real_group": ([3], 900, None),  # beside the padding group
+    "duplicate_heavy": ([0, 2], 1500, 12),  # one group of 1500 records
+}
+DENSE_CPG, DENSE_GROUPS, DENSE_CAPACITY, DENSE_KEYS = 16384, 5, 3, 2048
+
+
+def dense_edge_case(name, seed=0):
+    """Bank and sorted packed keys of one dense edge case (numpy), each
+    touched group with its own records, mixed hit/miss, sentinel-padded."""
+    groups, per_group, cells = DENSE_EDGE_CASES[name]
+    rng = np.random.default_rng(seed)
+    bank = rng.integers(0, 32768, DENSE_GROUPS * DENSE_CPG).astype(np.int16)
+    keys = []
+    for i, g in enumerate(groups):
+        n = per_group if i == 0 else min(per_group, 200)
+        cell = rng.integers(0, cells, n) if cells else rng.integers(0, DENSE_CPG // 4, n) * 4
+        keys.extend(((g << TP.cell_bits(DENSE_CPG)) | (cell << 1) | rng.integers(0, 2, n)).tolist())
+    keys = np.sort(np.asarray(keys + [2**31 - 1] * (DENSE_KEYS - len(keys)), np.int64)).astype(np.int32)
+    return bank, keys
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_EDGE_CASES))
+def test_dense_grouped_updates_edge_cases_match_pallas(name):
+    """K1's dense entry (tables, then K1) against JAX's, the Pallas kernel in
+    interpret mode: bank and `dropped`, padding group unchanged."""
+    bank, keys = dense_edge_case(name)
+    kw = dict(num_groups=DENSE_CAPACITY, cells_per_group=DENSE_CPG, hit_odds=HIT_ODDS,
+              miss_odds=MISS_ODDS, dummy_group=DENSE_GROUPS - 1)
+    out_j, dropped_j = JP.apply_grouped_updates(jnp.asarray(bank), jnp.asarray(keys), **kw)
+    out_t, dropped_t = TP.apply_grouped_updates(torch.from_numpy(bank.copy()), torch.from_numpy(keys),
+                                                **kw)
+    np.testing.assert_array_equal(np.asarray(out_j), out_t.numpy())
+    touched = len(DENSE_EDGE_CASES[name][0])
+    assert int(dropped_t) == int(dropped_j) == max(0, touched - DENSE_CAPACITY)
+    np.testing.assert_array_equal(out_t.numpy()[-DENSE_CPG:], bank[-DENSE_CPG:])
+    assert (out_t.numpy() != bank).any() == (touched > 0)
+
+
 def _to_torch(bank):
     return TB.BrickBank(*(torch.from_numpy(np.array(x)) for x in bank))
 

@@ -125,3 +125,11 @@ def test_map_builder_matches_jax(trajectories, scans, depth):
         np.testing.assert_allclose(b.translation, np.asarray(a.translation), atol=5e-3)
 
 
+def test_map_builder_needs_a_card_unless_told_cpu(monkeypatch):
+    """Without `device` MapBuilder runs on the CUDA card; with none it
+    raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = t_load_config("basic", _overrides())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TMB.MapBuilder(cfg)
+    assert TMB.MapBuilder(cfg, device="cpu").device.type == "cpu"

@@ -98,7 +98,7 @@ def test_pipelined_capture_bit_identical(grids, monkeypatch):
 
 def test_io_dependent_entry_points_raise():
     over = _overrides()
-    b = TMB.MapBuilder(t_load_config("basic", over))
+    b = TMB.MapBuilder(t_load_config("basic", over), device="cpu")
     for call in (lambda: b.add_navsat_data(0.0, 48.0, 11.0, 500.0),
                  lambda: b.save_checkpoint("x.npz"),
                  lambda: TMB.map_builder_from_state("x.npz", b.config),

@@ -17,6 +17,7 @@ import threading
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from dliom_tpu.backend.pose_graph import PoseGraph as JPoseGraph
@@ -118,7 +119,7 @@ def test_loop_closure_same_constraints_and_poses():
         jcfg.pose_graph, max_num_final_iterations=10))
     tcfg = _port_config()
     jpg = JPoseGraph(jcfg.pose_graph, jcfg.trajectory_builder)
-    tpg = TPG.PoseGraph(tcfg.pose_graph, tcfg.trajectory_builder)
+    tpg = TPG.PoseGraph(tcfg.pose_graph, tcfg.trajectory_builder, device="cpu")
     for pg, cfg in ((jpg, jcfg), (tpg, jcfg)):
         _scenario(pg, cfg, 2, [0.8, -0.5, 0.2], [4.0, 0.0, 0.0], finish_s1=False)
     assert any(c.tag == "INTER" and c.submap_id == 0 for c in tpg.constraints)
@@ -135,7 +136,7 @@ def test_image_proposal_same_constraints():
     tcfg = _port_config(max_radius_enable_loop_detection=2.0,
                         num_close_submaps_loop_with_initial_value=1)
     jpg = JPoseGraph(jcfg.pose_graph, jcfg.trajectory_builder)
-    tpg = TPG.PoseGraph(tcfg.pose_graph, tcfg.trajectory_builder)
+    tpg = TPG.PoseGraph(tcfg.pose_graph, tcfg.trajectory_builder, device="cpu")
     for pg in (jpg, tpg):
         _scenario(pg, jcfg, 4, [6.0, -5.0, 0.1], [5.0, 0.0, 0.0], finish_s1=True)
     assert any(c.tag == "INTER" and c.submap_id == 0 for c in tpg.constraints)
@@ -147,7 +148,8 @@ def test_in_flight_guard_decompresses_once(monkeypatch):
     same finished submap at once share one decompression."""
     tcfg = _port_config()
     pool = TaskThreadPool(2)
-    tpg = TPG.PoseGraph(tcfg.pose_graph, tcfg.trajectory_builder, pool=pool)
+    tpg = TPG.PoseGraph(tcfg.pose_graph, tcfg.trajectory_builder, pool=pool,
+                        device="cpu")
     hi, lo = grid_specs(_cfg().trajectory_builder.submaps)
     points = _world_cloud(np.random.default_rng(2))
     g = tuple(torch.from_numpy(np.asarray(x)) for x in _grids(points, [0.0, 0.0, 0.0], hi, lo))
@@ -178,3 +180,13 @@ def test_in_flight_guard_decompresses_once(monkeypatch):
     pool.close()
     assert targets == [s0, s0]
     assert len(calls) == 2  # one high and one low grid: decompressed once
+
+
+def test_pose_graph_needs_a_card_unless_told_cpu(monkeypatch):
+    """Without `device` PoseGraph runs on the CUDA card; with none it
+    raises instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = _port_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TPG.PoseGraph(tcfg.pose_graph, tcfg.trajectory_builder)
+    assert TPG.PoseGraph(tcfg.pose_graph, tcfg.trajectory_builder, device="cpu").device.type == "cpu"

@@ -69,6 +69,33 @@ def test_affine_chain_plain_matches_jax_recurrence():
     assert K2.LAUNCHES == 0  # CPU tensors never launch the kernel
 
 
+@pytest.mark.parametrize("m", [1, 7, 48, 64])
+def test_affine_chain_plain_matches_jax_scan(m, monkeypatch):
+    """K2's plain version on the F and Q the port's `integrate` builds,
+    against the chain of JAX's `integrate` (associative_scan on the CPU),
+    with a masked tail: from the identity Jacobian and zero covariance JAX
+    returns (A, P) as its jacobian and covariance."""
+    n_valid = m - m // 4
+    dts, accs, gyrs, mask, ba, bg, acc0, gyr0 = _samples(5, m=m, n_valid=n_valid)
+    jp = J.integrate(J.make_preintegrated(*(jnp.asarray(x) for x in (ba, bg, acc0, gyr0))),
+                     jnp.asarray(dts), jnp.asarray(accs), jnp.asarray(gyrs), jnp.asarray(mask),
+                     J.noise_matrix(_IMU))
+    chains = []
+
+    def recording(f, q):
+        chains.append((f, q))
+        return K2.affine_chain_plain(f, q)
+
+    monkeypatch.setattr(T, "affine_chain", recording)
+    T.integrate(T.make_preintegrated(*(torch.from_numpy(x) for x in (ba, bg, acc0, gyr0))),
+                *(torch.from_numpy(x) for x in (dts, accs, gyrs, mask)), T.noise_matrix(_IMU))
+    (f, q), = chains
+    assert f.shape == (m, 15, 15)
+    a, p = K2.affine_chain_plain(f, q)
+    _close(jp.jacobian, a)
+    _close(jp.covariance, p)
+
+
 def test_predict_and_bias_correction():
     dts, accs, gyrs, mask, ba, bg, acc0, gyr0 = _samples(2)
     jp = J.integrate_sequential(
