@@ -10,16 +10,18 @@ Phases, in order; any failed check raises and the exit code is non-zero:
   3. K1 (grouped grid-update apply) against its plain PyTorch version at
      the bench config's two brick shapes, bit for bit, and both timed;
   4. K2 (IMU affine chain) against its plain version, rtol 1e-5 / atol
-     1e-6, at M = 48 (the bench config), 64 (the default) and 200 (longer
-     than one warp's ring of samples), both timed;
+     1e-6, at M = 32 (the dynamic initializer's padded segment), 48 (the
+     bench config), 64 (the default) and 200 (longer than one warp's ring
+     of samples), both timed;
   5. the slice: `lio_step` at the bench config (bench.py's
      build_config values, 32768 raw points and 48 IMU samples per scan,
      the synthetic corkscrew with bench.py's IMU recipe), 2 warm-up scans
      then timed scans across a submap spawn; finite poses, no failure, no
      dropped grid updates, kernel launch counts from the timed run, and
      the first 3 scans against the port's own CPU run (plain versions);
-  6. where the time goes: torch.profiler over 3 more scans, per span of
-     lio_step (host time, kernel time, launches) and the card's idle share;
+  6. where the time goes: torch.profiler over 3 more scans after a
+     warm-up cycle of 3, per span of lio_step (host time, kernel time,
+     launches) and the card's idle share;
   7. K1's dense-bank entry (`apply_grouped_updates`) against its plain
      version at bench_e2e's dense shapes (the 2 x 128^3 high bank and the
      2 x 64^3 low bank, each plus the padding group; 256 steps, 49152
@@ -35,7 +37,8 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      bench_e2e's config (dense 0.2 m / 0.8 m grids, extents 128 / 64,
      dense_apply_groups 256, 2 background threads, pipeline_depth 1):
      static start, a warm-up lap and a bit (the revisit closes loops), a
-     timed stretch, a short profiled window, `finish_trajectory()`. Checks:
+     timed stretch, a short profiled window after a warm-up cycle of the
+     same length, `finish_trajectory()`. Checks:
      initialized, finite poses, no failure reset, zero dropped groups, at
      least one INTER constraint, the final optimization ran, K1's dense
      entry launched twice and K2 once per stepped scan; in a window of
@@ -44,7 +47,27 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      copy of the same bank and keys, bit for bit; and each of the first 10
      steps, the window's first two and the steps either side of the
      finish, re-run on the CPU (plain versions) from the card's pre-step
-     state and input, within 2e-3 of the card's local pose.
+     state and input, within 2e-3 of the card's local pose;
+  9. the shipped presets' own paths through `MapBuilder`, at their
+     published sizes: (a) `campus` as shipped (dense 0.2 m / 0.45 m grids
+     of 512^3 / 256^3 cells, per-record insertion, NDT dynamic
+     initialization, the gravity factor) on a course that moves from the
+     first scan with a time-varying acceleration: initialization in motion
+     (up within 0.99, velocity within 0.4 m/s of the truth, the result
+     re-run on the CPU from the same buffered inputs within INIT_ATOL),
+     then CAMPUS_STEPS stepped scans (finite, no failure reset, no drops,
+     the gravity factor valid), K2 launched exactly once per initializer
+     segment and once per stepped scan, the first CAMPUS_COMPARE steps
+     re-run on the CPU from the card's pre-step state within 2e-3; (b)
+     `viral` as shipped but for num_range_data (high 0.1 m brick grid on
+     the per-record insert, `brick_apply_groups` 0) on phase 8's course:
+     every high-grid brick insert and slot reset from the first step to
+     the first insert with records after the first slot recycle held bit
+     for bit against the same call on a CPU copy (directory, pool, counts,
+     group_of_slot, dropped, epochs), K2 once per stepped scan; (c)
+     `campus` with the online correlative matcher for RTC_STEPS scans:
+     each pre-search's best candidate and score on the card against the
+     same call on the CPU. The overrides the course forces are printed as `reduced`.
 
 Phase 8 compares step by step, not the free-running CPU trajectory: on
 this course an input change of 1e-6 moves the CPU run's fifth local pose
@@ -96,7 +119,7 @@ REPEATS = 25
 EVENT_LAUNCHES = 200  # calls per CUDA-event timing (phases 3, 4, 7)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores, the same
-K2_LENGTHS = (48, 64, 200)  # IMU samples per chain: bench config, default, long
+K2_LENGTHS = (32, 48, 64, 200)  # IMU samples per chain: initializer, bench config, default, long
 PROFILED_CALLS = 20  # dense-entry calls under torch.profiler (phase 7)
 PROFILED = 3  # scans under torch.profiler after the timed run (phase 6)
 E2E_STATIC = 16  # bench.py: round(1.6 / scan_period) stationary scans
@@ -106,6 +129,15 @@ E2E_PROFILED = 2  # scans under torch.profiler after the timed stretch
 E2E_COMPARE = 10  # local poses compared with the port's CPU run
 E2E_BANK_FROM = 100  # the bank window starts here (steps; the motion starts at step 8)
 E2E_BANK_MAX = 60  # steps, enough for a submap finish (every ~32 steps here)
+CAMPUS_V0 = 0.5  # m/s along x at the first scan: the course starts in motion
+CAMPUS_STEPS = 40  # stepped scans after the dynamic initialization
+CAMPUS_COMPARE = 5  # steps re-run on the CPU from the card's pre-step state
+INIT_ATOL = 1e-2  # card vs CPU initializer result: six chained NDT solves
+CAMPUS_PROFILED = 2  # stepped scans under torch.profiler, after a warm-up cycle as long
+VIRAL_MOVING = 24  # moving scans after phase 8's E2E_STATIC static ones
+VIRAL_RANGE_DATA = 3  # inserts per submap: the course makes ~14 inserts
+RTC_STEPS = 5  # stepped scans with the online correlative pre-search
+RTC_SCORE_ATOL = 1e-6
 SPANS = ("lio.preintegrate", "frontend.filter", "frontend.match", "lio.window",
          "frontend.insert", "frontend.histogram")
 G = 9.80511
@@ -401,39 +433,65 @@ def fresh_state(cfg, device):
     return make_lio_state(cfg, NavState.identity(device), zero, zero)
 
 
-def profile_slice(cfg, state, inputs):
-    """Phase 6, where the time goes: torch.profiler over a few more scans.
-    Per span of lio_step (record_function): host time, kernel time on the
-    card and kernel count per scan, and the card's idle share of the wall
-    time. The profiler's own overhead inflates the host times."""
-    from torch.profiler import ProfilerActivity, profile
+def warm_profile(cycles):
+    """torch.profiler over the last of `cycles` (callables run in turn): the
+    first is a warm-up cycle, whose events are dropped (a profile without
+    one lost device events at its start, PERF.md Findings, PR 3). Returns
+    (the profiler, host ms of the recorded cycle)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=len(cycles) - 1, active=1, repeat=1)) as prof:
+        for cycle in cycles:
+            t0 = time.perf_counter()
+            cycle()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    return prof, wall
+
+
+def profile_slice(cfg, state, inputs):
+    """Phase 6, where the time goes: torch.profiler over a few more scans,
+    after a warm-up cycle of as many. Per span of lio_step
+    (record_function): host time, kernel time on the card and kernel count
+    per scan, and the card's idle share of the wall time. The profiler's
+    own overhead inflates the host times."""
     from dliom_tpu_torch.frontend.lio import run_lio_chunk
 
-    n = len(inputs)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_lio_chunk(state, inputs, cfg)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    events = prof.events()
+    n = len(inputs) // 2
+    box = {"state": state}
 
+    def cycle(chunk):
+        def run():
+            box["state"], _ = run_lio_chunk(box["state"], chunk, cfg)
+        return run
+
+    prof, wall = warm_profile([cycle(inputs[:n]), cycle(inputs[n:])])
+    print_spans(prof.events(), n, wall / n, "profile")
+
+
+def print_spans(events, n, wall, tag):
+    """Per span of lio_step over `n` profiled scans of `wall` ms each: host
+    time, kernel time on the card and kernel count per scan, and the
+    card's idle share. Returns the idle share."""
     def kernels(ev):
         return list(ev.kernels) + [k for c in ev.cpu_children for k in kernels(c)]
 
     busy = sum(k.duration for ev in events for k in ev.kernels) / 1e3 / n
     count = sum(len(ev.kernels) for ev in events) / n
-    print(f"profile: {n} scans, {wall:.1f} ms/scan wall under the profiler, kernels "
+    print(f"{tag}: {n} scans, {wall:.1f} ms/scan wall under the profiler, kernels "
           f"{busy:.2f} ms/scan ({count:.0f} launches), card idle share {1 - busy / wall:.3f}")
     for name in SPANS:
         spans = [ev for ev in events if ev.name == name]
         check(spans, f"profiler saw span {name}")
         ks = [k for ev in spans for k in kernels(ev)]
         host = sum(ev.cpu_time_total for ev in spans) / 1e3 / n
-        print(f"profile: {name:20s} host {host:8.2f} ms/scan  kernels "
+        print(f"{tag}: {name:20s} host {host:8.2f} ms/scan  kernels "
               f"{sum(k.duration for k in ks) / 1e3 / n:7.3f} ms/scan  "
               f"{len(ks) / n:8.0f} launches/scan")
+    return 1 - busy / wall
 
 
 def check_slice(ga, ac, dev):
@@ -443,7 +501,7 @@ def check_slice(ga, ac, dev):
     cfg = load_config("basic", BENCH_OVERRIDES).override(
         {"trajectory_builder": {"submaps": SPAWN_CAPACITIES}}).trajectory_builder
     scan = bench_scans(dev)
-    inputs = [scan(i) for i in range(WARMUP + TIMED + PROFILED)]  # cast before timing
+    inputs = [scan(i) for i in range(WARMUP + TIMED + 2 * PROFILED)]  # cast before timing
     torch.cuda.reset_peak_memory_stats()
     state, results = run_lio_chunk(fresh_state(cfg, dev), inputs[:WARMUP], cfg)
     torch.cuda.synchronize()
@@ -664,7 +722,7 @@ def record_steps(pose_steps, bank_from, bank_max):
     from dliom_tpu_torch.ops import grouped_apply as ga
 
     rec = {"n": 0, "steps": {}, "calls": [], "finished": [], "end": bank_from + bank_max,
-           "window": False}
+           "window": False, "gravity_valid": []}
     step, dense = map_builder.lio_step, ga.apply_grouped_updates
 
     def cpu(tree):
@@ -676,6 +734,7 @@ def record_steps(pose_steps, bank_from, bank_max):
         if k in pose_steps or rec["window"]:
             rec["steps"][k] = cpu((state, inp))
         out = step(state, inp, cfg)
+        rec["gravity_valid"].append(out[1].gravity_valid)
         if rec["window"] and int(out[1].scan.finished_submap) >= 0:
             rec["finished"].append(k)
             rec["end"] = min(rec["end"], k + 2)
@@ -698,21 +757,23 @@ def record_steps(pose_steps, bank_from, bank_max):
             changed=not torch.equal(got, before), dropped=(int(dropped), int(want_dropped))))
         return pool, dropped
 
+    def restore():
+        map_builder.lio_step, ga.apply_grouped_updates = step, dense
+
     map_builder.lio_step = recording
     ga.apply_grouped_updates = dense_recording
+    rec["restore"] = restore
     return rec
 
 
 def check_mapping(ga, ac, dev):
     """Phase 8: MapBuilder on the bench_e2e course, see the module docstring."""
-    from torch.profiler import ProfilerActivity, profile
-
     from dliom_tpu_torch.common.config import load_config
     from dliom_tpu_torch.map_builder import MapBuilder
 
     cfg = load_config("basic", E2E_OVERRIDES)
     n_warm = E2E_STATIC + E2E_WARM
-    course = e2e_course(n_warm + E2E_TIMED + E2E_PROFILED)
+    course = e2e_course(n_warm + E2E_TIMED + 2 * E2E_PROFILED)
     builder = MapBuilder(cfg, use_background_threads=True, pipeline_depth=1, device=dev)
     pg = builder.pose_graph
     rec = record_steps(set(range(E2E_COMPARE)), E2E_BANK_FROM, E2E_BANK_MAX)
@@ -740,13 +801,15 @@ def check_mapping(ga, ac, dev):
     search = np.asarray(pg.constraint_search_seconds)
     print(f"mapping: timed {E2E_TIMED} scans in {timed_s:.3f} s", flush=True)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tp = time.perf_counter()
-        drive(builder, course[n_warm + E2E_TIMED:])
-        builder.flush()
-        pg.wait_for_all_computations()
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - tp) * 1e3
+    def cycle(scans):
+        def run():
+            drive(builder, scans)
+            builder.flush()
+            pg.wait_for_all_computations()
+        return run
+
+    a = n_warm + E2E_TIMED
+    prof, prof_wall = warm_profile([cycle(course[a:a + E2E_PROFILED]), cycle(course[a + E2E_PROFILED:])])
     busy, top = card_busy_ms(prof.events())
 
     spa_before = pg.phase_seconds.get("spa", 0.0)
@@ -756,6 +819,7 @@ def check_mapping(ga, ac, dev):
     total_s = time.perf_counter() - t_all
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
+    rec["restore"]()
 
     results = builder.local_trajectory(0)
     stepped = len(results)
@@ -763,7 +827,8 @@ def check_mapping(ga, ac, dev):
     inter = pg.num_inter_constraints()
     drops = int(builder.trajectory(0)._lio.frontend.submaps.dense_dropped[0])
     print(f"mapping: {len(course)} scans ({E2E_STATIC} static, {E2E_WARM} warm-up, {E2E_TIMED} "
-          f"timed, {E2E_PROFILED} profiled) in {total_s:.1f} s (warm-up {warm_s:.1f} s); "
+          f"timed, {E2E_PROFILED} + {E2E_PROFILED} profiled after a warm-up cycle) in {total_s:.1f} s "
+          f"(warm-up {warm_s:.1f} s); "
           f"{stepped} stepped, {inserted} inserted")
     print(f"mapping: timed {E2E_TIMED} scans in {timed_s:.3f} s = {E2E_TIMED / timed_s:.3f} scans/s; "
           f"scan latency p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms; "
@@ -844,6 +909,363 @@ def check_mapping(ga, ac, dev):
                       "idle_share": 1 - busy / prof_wall, "phase_seconds": phases}
 
 
+def campus_course(n_scans):
+    """Phase 9's course for `campus`: bench.py's scan world (8000 returns
+    per scan) and phase 8's IMU recipe at 100 Hz, a level body moving from
+    the first scan (CAMPUS_V0 along x) under tests/test_dynamic_init.py's
+    time-varying acceleration (1.4 cos 1.8t, 1.0 sin 1.8t), a scan every
+    0.1 s. Per scan: its IMU samples [(t, acc, gyr)], its stamp, points,
+    point times and the true velocity."""
+    from dliom_tpu_torch.io.synthetic import ImuNoise, ImuSimulator, SyntheticWorld
+    from dliom_tpu_torch.transform.rigid import Rigid3
+
+    period = 0.1
+    world = SyntheticWorld.create()
+    sim = ImuSimulator(rate=100.0, noise=ImuNoise(acc_noise=0.02, gyr_noise=0.002,
+                                                  gyr_bias0=(0.0, 0.0, 0.004)), gravity=G, seed=5)
+    q = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
+
+    def velocity(tau):
+        return np.array([CAMPUS_V0 + 1.4 * np.sin(1.8 * tau) / 1.8, (1.0 - np.cos(1.8 * tau)) / 1.8, 0.0])
+
+    course, t, p = [], 0.0, np.zeros(3)
+    for k in range(n_scans):
+        v0, v1 = velocity(k * period), velocity((k + 1) * period)
+        p1 = p + 0.5 * (v0 + v1) * period  # exact under the interval's constant acceleration
+        dts, accs, gyrs, mask = sim.between(Rigid3(q, p.astype(np.float32)), Rigid3(q, p1.astype(np.float32)),
+                                            v0, v1, period, 64)
+        imu = []
+        for i in range(int(mask.sum())):
+            t += float(dts[i])
+            imu.append((t, accs[i], gyrs[i]))
+        pts, ptimes = world.cast_scan(Rigid3(q, p1.astype(np.float32)))
+        course.append((imu, t, pts, ptimes, v1))
+        p = p1
+    return course
+
+
+def drive_until(builder, course, steps):
+    """Feed `course` scan by scan until `steps` scans were stepped (the
+    builder runs unpipelined); returns the number of scans fed."""
+    for k, (imu, t, pts, ptimes, _) in enumerate(course):
+        for ti, acc, gyr in imu:
+            builder.add_imu_data(ti, acc, gyr)
+        builder.add_range_data(t, pts, ptimes)
+        if len(builder.local_trajectory(0)) >= steps:
+            return k + 1
+    raise RuntimeError(f"check failed: the course ended before {steps} stepped scans")
+
+
+def record_initializer(builder):
+    """Wrap the builder's dynamic initializer: keep its calls (to replay
+    them on the CPU), count its segments (each a K2 launch), time its scans
+    and, with a synchronize either side, its preintegrations, NDT fields
+    and NDT matches. Returns the dict it fills."""
+    from dliom_tpu_torch.imu import dynamic_initializer as di
+
+    init = builder.trajectory(0)._dyn_init
+    rec = {"calls": [], "segments": 0, "scans": 0, "seconds": 0.0, "result": None,
+           "parts": {"preintegrate": 0.0, "build_field": 0.0, "ndt_match": 0.0}}
+    add_imu, add_scan, segment = init.add_imu, init.add_scan, init._segment_preint
+
+    def timed(part, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec["parts"][part] += time.perf_counter() - t0
+            return out
+        return run
+
+    build_field, match = di.build_field, di.ndt_match
+    di.build_field, di.ndt_match = timed("build_field", build_field), timed("ndt_match", match)
+    segment = timed("preintegrate", segment)
+
+    def restore():
+        di.build_field, di.ndt_match = build_field, match
+
+    def imu(t, acc, gyr):
+        rec["calls"].append(("imu", t, acc, gyr))
+        return add_imu(t, acc, gyr)
+
+    def scan(t, points):
+        rec["calls"].append(("scan", t, points))
+        t0 = time.perf_counter()
+        out = add_scan(t, points)
+        torch.cuda.synchronize()
+        rec["seconds"] += time.perf_counter() - t0
+        rec["scans"] += 1
+        if out is not None:
+            rec["result"] = out
+        return out
+
+    def counted_segment():
+        rec["segments"] += 1
+        return segment()
+
+    init.add_imu, init.add_scan, init._segment_preint = imu, scan, counted_segment
+    rec["restore"] = restore
+    return rec
+
+
+def check_campus(ac, dev):
+    """Phase 9 (a): campus as shipped, initialized in motion, see the
+    module docstring."""
+    from dliom_tpu_torch.common.config import load_config
+    from dliom_tpu_torch.frontend.lio import lio_step
+    from dliom_tpu_torch.imu.dynamic_initializer import DynamicInitializer
+    from dliom_tpu_torch.map_builder import MapBuilder
+    from dliom_tpu_torch.transform.rigid import quat_rotate
+
+    cfg = load_config("campus")
+    tb = cfg.trajectory_builder
+    check(tb.enable_ndt_initialization and tb.enable_gravity_factor
+          and tb.submaps.dense_apply_groups == 0, "campus ships NDT init, gravity factor, per-record insert")
+    course = campus_course(2 * (tb.frames_for_dynamic_initialization + 1) + CAMPUS_STEPS
+                           + 2 * CAMPUS_PROFILED)
+    builder = MapBuilder(cfg, device=dev)
+    init = record_initializer(builder)
+    rec = record_steps(set(range(CAMPUS_COMPARE)), 10**9, 0)
+    ac.LAUNCHES = 0  # the main path starts: zero the launch counts
+    t0 = time.perf_counter()
+    fed = drive_until(builder, course, CAMPUS_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ac.LAUNCHES
+    rec["restore"]()
+    init["restore"]()
+    results = builder.local_trajectory(0)[:]
+    stepped = len(results)
+    lat = np.asarray(builder.local_slam_latency_seconds[CAMPUS_COMPARE:]) * 1e3
+
+    # where a campus step's time goes
+    def cycle(scans):
+        return lambda: drive(builder, [c[:4] for c in scans])
+
+    prof, prof_wall = warm_profile([cycle(course[fed:fed + CAMPUS_PROFILED]),
+                                    cycle(course[fed + CAMPUS_PROFILED:fed + 2 * CAMPUS_PROFILED])])
+    idle = print_spans(prof.events(), CAMPUS_PROFILED, prof_wall / CAMPUS_PROFILED, "campus profile")
+
+    res = init["result"]
+    check(res is not None and builder.initialized, "campus: dynamic initialization triggered")
+    init_scan = init["scans"] - 1
+    up = float(quat_rotate(res.nav.rotation, torch.tensor([0.0, 0.0, 1.0], device=dev))[2])
+    v_err = float(np.linalg.norm(res.nav.velocity.cpu().numpy() - course[init_scan][4]))
+    print(f"campus: initialized in motion on scan {init_scan} after {init['segments']} segments, "
+          f"initializer {init['seconds']:.3f} s over {init['scans']} scans ("
+          + ", ".join(f"{k} {v:.3f} s" for k, v in init["parts"].items()) + f"); up.z {up:.5f}, velocity "
+          f"{np.round(res.nav.velocity.cpu().numpy(), 3).tolist()} vs truth "
+          f"{np.round(course[init_scan][4], 3).tolist()} (error {v_err:.3f} m/s)", flush=True)
+    check(up > 0.99, f"campus: gravity-aligned after initialization (up.z {up:.4f})")
+    check(v_err < 0.4, f"campus: initial velocity within 0.4 m/s of the truth ({v_err:.3f})")
+
+    # the initializer again on the CPU (plain versions) from the same inputs
+    cpu_init = DynamicInitializer(tb, "cpu")
+    cpu_res = None
+    for call in init["calls"]:
+        out = cpu_init.add_imu(*call[1:]) if call[0] == "imu" else cpu_init.add_scan(*call[1:])
+        cpu_res = out if out is not None else cpu_res
+    check(cpu_res is not None, "campus: the CPU initializer triggers on the same inputs")
+    init_diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(res.nav, cpu_res.nav))
+    print(f"campus: initializer CUDA vs CPU: largest nav difference {init_diff:.3e} (tolerance {INIT_ATOL})")
+    check(init_diff <= INIT_ATOL, f"campus: initializer CUDA vs CPU differ by {init_diff:.3e}")
+
+    submaps = builder.trajectory(0)._lio.frontend.submaps
+    drops = int(submaps.dense_dropped[0])
+    gravity = int(torch.stack(rec["gravity_valid"]).sum())
+    for k, r in enumerate(results):
+        pose = r["local_pose"]
+        check(np.all(np.isfinite(pose.translation)) and np.all(np.isfinite(pose.rotation)),
+              f"campus: local pose {k} finite")
+        check(not r["failed"], f"campus: scan {k}: FailureDetection reset")
+    check(drops == 0, f"campus: no dropped dense groups ({drops})")
+    check(gravity > 0, "campus: the gravity factor was valid on some step")
+    check(launches == init["segments"] + stepped,
+          f"campus: K2 {launches} launches, not {init['segments']} segments + {stepped} steps")
+    steps_s = wall - init["seconds"]
+    print(f"campus: {fed} scans fed, {stepped} stepped, {int(sum(r['inserted'] for r in results))} inserted; "
+          f"gravity factor valid on {gravity} steps; dense groups dropped {drops}; K2 launches {launches} "
+          f"= {init['segments']} segments + {stepped} steps; {stepped / steps_s:.3f} scans/s over the "
+          f"stepped scans ({steps_s:.2f} s, the first {CAMPUS_COMPARE} copied to the host); scan latency "
+          f"p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms (steps "
+          f"{CAMPUS_COMPARE}-{stepped - 1}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+
+    worst = 0.0
+    for k in range(CAMPUS_COMPARE):
+        state, inp = rec["steps"][k]
+        _, out = lio_step(state, inp, tb)
+        g = results[k]["local_pose"]
+        d = max(float(np.abs(g.translation - out.scan.local_pose.translation.numpy()).max()),
+                float(np.abs(g.rotation - out.scan.local_pose.rotation.numpy()).max()))
+        worst = max(worst, d)
+        check(d <= POSE_ATOL, f"campus step {k}: CUDA vs CPU pose differ by {d:.3e}")
+    print(f"campus: steps 0-{CAMPUS_COMPARE - 1} re-run on the CPU from the card's state: largest pose "
+          f"difference {worst:.3e} (tolerance {POSE_ATOL})")
+    return launches, {"scans_per_s": stepped / steps_s, "p50_ms": float(np.percentile(lat, 50)),
+                      "p99_ms": float(np.percentile(lat, 99)), "idle_share": idle,
+                      "init_seconds": init["seconds"], "init_parts": init["parts"],
+                      "init_scan": init_scan, "init_velocity_error": v_err, "init_cuda_vs_cpu": init_diff}
+
+
+def record_brick_calls(spec):
+    """Hold every high-grid brick insert and slot reset of the main path
+    against the same call on a CPU copy of its inputs, bit for bit, from
+    now until the first insert with records after the second pending
+    reset (the first that recycles a slot). Returns the dict it fills."""
+    from torch.utils._pytree import tree_map
+
+    from dliom_tpu_torch.mapping import submap
+
+    rec = {"open": True, "inserts": [], "resets": []}
+    insert, reset = submap._insert_brick_slots, submap.reset_slot
+
+    def cpu(tree):
+        return tree_map(lambda x: x.to("cpu", copy=True) if isinstance(x, torch.Tensor) else x, tree)
+
+    def same(got, want):
+        return all(torch.equal(getattr(got, f).cpu(), getattr(want, f)) for f in got._fields)
+
+    def recording_insert(bank, origins, hits, masks, **kw):
+        if not (rec["open"] and kw["spec"] == spec):
+            return insert(bank, origins, hits, masks, **kw)
+        before = cpu((bank, origins, hits, masks))
+        out = insert(bank, origins, hits, masks, **kw)
+        rec["inserts"].append(dict(equal=same(out, insert(*before, **kw)), records=int(masks.sum()),
+                                   counts=out.counts.tolist()))
+        if sum(r["pending"] for r in rec["resets"]) >= 2 and rec["inserts"][-1]["records"]:
+            rec["open"] = False
+        return out
+
+    def recording_reset(bank, bspec, slot, pending=True):
+        if not (rec["open"] and bspec == spec):
+            return reset(bank, bspec, slot, pending)
+        before = cpu((bank, slot, pending))
+        out = reset(bank, bspec, slot, pending)
+        rec["resets"].append(dict(equal=same(out, reset(before[0], bspec, *before[1:])),
+                                  pending=bool(before[2]), slot=int(before[1])))
+        return out
+
+    submap._insert_brick_slots, submap.reset_slot = recording_insert, recording_reset
+
+    def restore():
+        submap._insert_brick_slots, submap.reset_slot = insert, reset
+
+    rec["restore"] = restore
+    return rec
+
+
+def check_viral(ac, dev):
+    """Phase 9 (b): viral's per-record brick insert, see the module
+    docstring."""
+    from dliom_tpu_torch.common.config import load_config
+    from dliom_tpu_torch.map_builder import MapBuilder
+    from dliom_tpu_torch.mapping.submap import brick_spec
+
+    cfg = load_config("viral", {"trajectory_builder": {"submaps": {"num_range_data": VIRAL_RANGE_DATA}}})
+    spec = brick_spec(cfg.trajectory_builder.submaps)
+    check(spec.apply_groups == 0 and spec.resolution == 0.1, "viral ships a 0.1 m per-record brick grid")
+    course = e2e_course(E2E_STATIC + VIRAL_MOVING)
+    builder = MapBuilder(cfg, pipeline_depth=1, device=dev)
+    rec = record_brick_calls(spec)
+    ac.LAUNCHES = 0  # the main path starts: zero the launch counts
+    window_scans, t0 = None, None
+    for k, scan in enumerate(course):
+        drive(builder, [scan])
+        if window_scans is None and not rec["open"]:
+            builder.flush()
+            torch.cuda.synchronize()
+            window_scans, t0 = k + 1, time.perf_counter()
+            builder.local_slam_latency_seconds.clear()
+    builder.flush()
+    torch.cuda.synchronize()
+    check(t0 is not None, "viral: a slot was recycled within the course")
+    timed_s = time.perf_counter() - t0
+    launches = ac.LAUNCHES
+    rec["restore"]()
+
+    results = builder.local_trajectory(0)
+    stepped = len(results)
+    sm = builder.trajectory(0)._lio.frontend.submaps
+    drops = {"brick": int(sm.high_brick.dropped[0]), "dense": int(sm.dense_dropped[0])}
+    for k, r in enumerate(results):
+        pose = r["local_pose"]
+        check(np.all(np.isfinite(pose.translation)) and np.all(np.isfinite(pose.rotation)),
+              f"viral: local pose {k} finite")
+        check(not r["failed"], f"viral: scan {k}: FailureDetection reset")
+    check(not any(drops.values()), f"viral: no dropped grid updates {drops}")
+    check(launches == stepped, f"viral: K2 {launches} launches for {stepped} stepped scans")
+    inserts, resets = rec["inserts"], rec["resets"]
+    differ = [c for c in inserts + resets if not c["equal"]]
+    check(not differ, f"viral: brick calls on the card differ from the CPU: {differ}")
+    pending = [c for c in resets if c["pending"]]
+    check(len(pending) >= 2 and any(c["records"] for c in inserts),
+          "viral: the window crossed a slot recycle")
+    lat = np.asarray(builder.local_slam_latency_seconds) * 1e3
+    timed = len(course) - window_scans
+    print(f"viral: {len(course)} scans ({E2E_STATIC} static), {stepped} stepped, "
+          f"{int(sum(r['inserted'] for r in results))} inserted; brick inserts of the first "
+          f"{window_scans} scans ({len(inserts)} calls, "
+          f"{sum(1 for c in inserts if c['records'])} with records) "
+          f"and {len(resets)} slot resets ({len(pending)} pending, slots {[c['slot'] for c in pending]}) "
+          f"bit-identical to the CPU; pool groups {inserts[-1]['counts']}; drops {drops}; K2 launches "
+          f"{launches}; timed {timed} scans after the window in {timed_s:.3f} s = {timed / timed_s:.3f} "
+          f"scans/s, scan latency p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms",
+          flush=True)
+    return launches, {"scans_per_s": timed / timed_s, "p50_ms": float(np.percentile(lat, 50)),
+                      "p99_ms": float(np.percentile(lat, 99)), "bit_identical_inserts": len(inserts),
+                      "bit_identical_resets": len(resets)}
+
+
+def check_correlative(ac, dev):
+    """Phase 9 (c): campus with the online correlative matcher; each
+    pre-search on the card against the same call on the CPU."""
+    from dliom_tpu_torch.common.config import load_config
+    from dliom_tpu_torch.map_builder import MapBuilder
+    from dliom_tpu_torch.ops import real_time_correlative as rtc
+
+    cfg = load_config("campus", {"trajectory_builder": {"use_online_correlative_scan_matching": True}})
+    tb = cfg.trajectory_builder
+    course = campus_course(2 * (tb.frames_for_dynamic_initialization + 1) + RTC_STEPS)
+    builder = MapBuilder(cfg, device=dev)
+    calls, match = [], rtc.match
+
+    def recording(initial, points, mask, values, spec, **kw):
+        t0 = time.perf_counter()
+        out = match(initial, points, mask, values, spec, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        host = [x.cpu() for x in (initial.rotation, initial.translation, points, mask, values)]
+        want = match(type(initial)(*host[:2]), *host[2:], spec, **dict(kw, base=kw["base"].cpu()))
+        calls.append(dict(index=(int(out.index), int(want.index)), ms=ms,
+                          score=(float(out.score), float(want.score))))
+        return out
+
+    rtc.match = recording
+    ac.LAUNCHES = 0
+    drive_until(builder, course, RTC_STEPS)
+    launches = ac.LAUNCHES
+    rtc.match = match
+    check(len(calls) == RTC_STEPS, f"correlative: {len(calls)} pre-searches for {RTC_STEPS} steps")
+    worst = max(abs(c["score"][0] - c["score"][1]) for c in calls)
+    for k, c in enumerate(calls):
+        check(c["index"][0] == c["index"][1],
+              f"correlative scan {k}: best candidate {c['index']} (card, CPU)")
+        check(abs(c["score"][0] - c["score"][1]) <= RTC_SCORE_ATOL,
+              f"correlative scan {k}: scores {c['score']}")
+    rc = tb.real_time_correlative_scan_matcher
+    n_cand = len(rtc._lattice(tb.submaps.high_resolution, rc.linear_search_window,
+                              rc.angular_search_window, tb.max_range, rc.max_angular_steps)[0])
+    print(f"correlative: {RTC_STEPS} pre-searches over {n_cand} candidates x {tb.max_high_res_points} "
+          f"points: "
+          f"best candidates {[c['index'][0] for c in calls]} equal to the CPU's, largest score difference "
+          f"{worst:.3e} (tolerance {RTC_SCORE_ATOL}); {np.median([c['ms'] for c in calls]):.1f} ms per "
+          f"pre-search (median, host clock); K2 launches {launches}")
+    return launches, {"candidates": n_cand, "score_diff": worst,
+                      "ms": float(np.median([c["ms"] for c in calls]))}
+
+
 def main():
     card = environment()
     import dliom_tpu_torch  # noqa: F401  (pins f32, TF32 off)
@@ -865,26 +1287,38 @@ def main():
     check(0 < dense_kernels <= 2, f"K1 dense entry: {dense_kernels} device kernels per call, "
           "not 1 or 2")
     map_launches, mapping = check_mapping(ga, ac, get_device("cuda"))
+    t9 = time.perf_counter()
+    campus_k2, campus = check_campus(ac, get_device("cuda"))
+    viral_k2, viral = check_viral(ac, get_device("cuda"))
+    rtc_k2, correlative = check_correlative(ac, get_device("cuda"))
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
     check("jax" not in sys.modules, "no jax imported")
+    k2_launches = {"slice": launches["affine_chain"], "mapping": map_launches["affine_chain"],
+                   "campus": campus_k2, "viral": viral_k2, "correlative": rtc_k2}
 
     print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "mapping": mapping,
+                      "campus": campus, "viral": viral, "correlative": correlative,
                       "dense_kernels_per_call": dense_kernels,
                       "grouped_apply_by_shape": {**k1, **k1d},
-                      "affine_chain_by_length": k2}))
+                      "affine_chain_by_length": k2, "affine_chain_launches": k2_launches,
+                      "reduced": {"viral": f"submaps.num_range_data 100 -> {VIRAL_RANGE_DATA}: the "
+                                           f"course's {E2E_STATIC + VIRAL_MOVING} scans insert ~14 times, "
+                                           "a slot recycle needs 2 x num_range_data inserts",
+                                  "campus": "none"}}))
 
-    def record(name, source, replaces, n, timed, err):
+    def record(name, source, replaces, n, timed, err, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
                 "max_abs_err": err, **{k: timed[k] for k in ("ms", "event_ms", "graph_ms", "plain_ms",
                                                               "bound_ms", "bound_by")},
-                "library_ms": None}
+                "library_ms": None, **extra}
 
     print(json.dumps({"kernels": [
         record("grouped_apply", "dliom_tpu_torch/csrc/grouped_apply.cu",
                "dliom_tpu/ops/pallas_apply.py:257", launches["grouped_apply"], k1["high_spawn"],
                max(v["max_abs_err"] for v in k1.values())),
         record("affine_chain", "dliom_tpu_torch/csrc/affine_chain.cu",
-               "dliom_tpu/imu/preintegration.py:102", launches["affine_chain"], k2[IMU_CAP],
-               max(v["max_abs_err"] for v in k2.values())),
+               "dliom_tpu/imu/preintegration.py:102", sum(k2_launches.values()), k2[IMU_CAP],
+               max(v["max_abs_err"] for v in k2.values()), launches_by_path=k2_launches),
         record("grouped_apply_dense", "dliom_tpu_torch/csrc/grouped_apply.cu",
                "dliom_tpu/ops/pallas_apply.py:215", map_launches["grouped_apply_dense"], k1d["dense"],
                max(v["max_abs_err"] for v in k1d.values())),

@@ -7,6 +7,7 @@ LocalTrajectoryBuilder3D, local_trajectory_builder_3d.cc):
   -> min/max-range clipping  :454-473
   -> voxel filter (full)     :477-482
   -> adaptive filters        AddAccumulatedRangeData:506-534
+  -> [correlative pre-search] :514-520 with use_online_correlative_scan_matching
   -> scan-to-submap LM match :535 (the front submap's two grids)
   -> [window optimize]       :555 via `fuse_fn`
   -> motion-filtered insert  InsertIntoSubmap:584-622
@@ -14,7 +15,8 @@ LocalTrajectoryBuilder3D, local_trajectory_builder_3d.cc):
 
 The submap banks are updated in place; the returned FrontendState shares
 them with the one passed in. The stages run under `record_function` spans
-(frontend.filter, .match, .insert, .histogram) that torch.profiler reads.
+(frontend.filter, .correlative, .match, .insert, .histogram) that
+torch.profiler reads.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from dliom_tpu_torch.mapping.submap import (
     matching_slot,
     slot_pose,
 )
+from dliom_tpu_torch.ops import real_time_correlative
 from dliom_tpu_torch.ops.rotational_histogram import compute_histogram
 from dliom_tpu_torch.ops.scan_matcher import match
 from dliom_tpu_torch.ops.voxel_filter import adaptive_voxel_filter, voxel_filter, voxel_filter_mask
@@ -91,8 +94,6 @@ def step(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilderConfig, fu
     with `fuse_fn(pose_estimate) -> (opt_pose, aux)` the tightly-coupled
     stage runs between matching and insertion and `(result, aux)` is
     returned."""
-    if cfg.use_online_correlative_scan_matching:
-        raise NotImplementedError("online correlative scan matching is not ported")
     state = state._replace(submaps=apply_pending_spawn(state.submaps, cfg.submaps))
     prev_pose = state.pose
     prediction = prev_pose.compose(scan.relative_prediction)
@@ -139,9 +140,26 @@ def step(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilderConfig, fu
     submap_pose = slot_pose(state.submaps, mslot)
     csm = cfg.ceres_scan_matcher
     bank_slot = 2 * state.submaps.lane + mslot
+    initial_in_submap = submap_pose.inverse().compose(prediction)
+    if cfg.use_online_correlative_scan_matching:
+        # exhaustive local pre-search seeding the LM matcher (:514-520)
+        rtc = cfg.real_time_correlative_scan_matcher
+        with record_function("frontend.correlative"):
+            initial_in_submap = real_time_correlative.match(
+                initial_in_submap, high.points, high.mask,
+                state.submaps.high_brick if sm_cfg.use_brick_grid else state.submaps.high_values,
+                brick_spec(sm_cfg) if sm_cfg.use_brick_grid else hi_spec,
+                linear_search_window=rtc.linear_search_window,
+                angular_search_window=rtc.angular_search_window,
+                translation_delta_cost_weight=rtc.translation_delta_cost_weight,
+                rotation_delta_cost_weight=rtc.rotation_delta_cost_weight,
+                max_scan_range=cfg.max_range,
+                max_angular_steps=rtc.max_angular_steps,
+                base=bank_slot if sm_cfg.use_brick_grid else bank_slot * hi_spec.num_cells,
+            ).pose
     with record_function("frontend.match"):
         result = match(
-            submap_pose.inverse().compose(prediction),
+            initial_in_submap,
             clouds=[(high.points, high.mask), (low.points, low.mask)],
             grids=[state.submaps.high_brick if sm_cfg.use_brick_grid else state.submaps.high_values,
                    state.submaps.low_brick if sm_cfg.use_brick_grid_low else state.submaps.low_values],

@@ -4,10 +4,11 @@ The JAX package's states are NamedTuple trees; a caller turns one into
 numpy with `jax.tree.map(np.asarray, tree)` and hands it here. Fields map by
 name onto the port's NamedTuples of the same class names and field names,
 so both packages can start from one `LioState` (or `ActiveSubmaps`,
-`CompressedGrid`, `Pyramid`, `PoseGraphData`) and be compared field by
-field. The pose graph's records are dataclasses whose node data stays
-numpy on the host: `node_record_from_numpy` and `submap_record_from_numpy`
-convert those. This module imports no jax.
+`CompressedGrid`, `Pyramid`, `PoseGraphData`, `NdtField`,
+`AlignmentInput`, `InitResult`) and be compared field by field. The pose
+graph's records are dataclasses whose node data stays numpy on the host:
+`node_record_from_numpy` and `submap_record_from_numpy` convert those.
+This module imports no jax.
 """
 
 from __future__ import annotations
@@ -25,18 +26,21 @@ from dliom_tpu_torch.backend.precomputation import Pyramid
 from dliom_tpu_torch.backend.submap_projection import SubmapImage
 from dliom_tpu_torch.frontend.lio import LioResult, LioScanInput, LioState
 from dliom_tpu_torch.frontend.local_trajectory_builder import FrontendState, ScanResult
+from dliom_tpu_torch.imu.dynamic_initializer import InitResult
+from dliom_tpu_torch.imu.initialization import AlignmentInput
 from dliom_tpu_torch.imu.preintegration import NavState, Preintegrated
 from dliom_tpu_torch.imu.window_optimizer import WindowState
 from dliom_tpu_torch.mapping.brick_grid import BrickBank
 from dliom_tpu_torch.mapping.motion_filter import MotionFilterState
 from dliom_tpu_torch.mapping.submap import ActiveSubmaps
+from dliom_tpu_torch.ops.ndt import NdtField
 from dliom_tpu_torch.transform.rigid import Rigid3, np_rigid
 
 _TYPES = {
     cls.__name__: cls
     for cls in (LioState, LioScanInput, LioResult, FrontendState, ScanResult, NavState,
                 Preintegrated, WindowState, BrickBank, MotionFilterState, ActiveSubmaps, Rigid3,
-                CompressedGrid, Pyramid, PoseGraphData)
+                CompressedGrid, Pyramid, PoseGraphData, NdtField, AlignmentInput, InitResult)
 }
 
 

@@ -5,14 +5,19 @@ dliom_tpu/mapping/brick_grid.py; reference mapping/3d/hybrid_grid.h).
     epoch-tagged pool group `(epoch << pg_bits) | pool_group`, or -1;
   * pool: (2 * num_pool_cells,) int16 — the allocated groups' cells.
 
-Insertion takes the grouped path only: allocation and directory upkeep run
-per touched group and the cell updates go through kernel K1
-(ops/grouped_apply.py). The JAX package's per-record XLA fallback
-(`apply_groups == 0`) is not ported and raises NotImplementedError.
+Insertion takes one of two paths. With `apply_groups > 0` (grouped),
+allocation and directory upkeep run per touched group and the cell updates
+go through kernel K1 (ops/grouped_apply.py); the pool's last group per slot
+is K1's parking row. With `apply_groups == 0` (per record, the JAX
+package's XLA fallback), every record looks up and allocates its group
+itself and the first record of each touched cell writes the cell's one
+update; every pool group can be allocated, and a reset clears the slot's
+directory and pool for real.
 
-Banks are updated in place: `reset_slot` writes the directory and
-`_insert_brick_slots` the directory, `group_of_slot` and the pool of the
-bank it is given, and both return a BrickBank that shares those tensors.
+Banks are updated in place: `reset_slot` writes the directory (and the
+pool on the per-record path) and `_insert_brick_slots` the directory,
+`group_of_slot` and the pool of the bank it is given, and both return a
+BrickBank that shares those tensors.
 """
 
 from __future__ import annotations
@@ -174,18 +179,23 @@ def interpolated_probability_brick(bank: BrickBank, points: torch.Tensor, spec: 
 
 def reset_slot(bank: BrickBank, spec: BrickGridSpec, slot, pending=True) -> BrickBank:
     """Recycle a slot for a new submap, gated arithmetically on `pending`.
-    Bumps the slot's epoch through epoch_mask (invalidating every entry of
-    the old epoch) and clears `sweep_per_reset` rotating directory entries
-    so a wrapped epoch never false-validates a stale entry. The directory
-    is written in place; the pool's stale cells stay, unreachable until K1
-    zero-fills a re-allocated group (`fresh`)."""
-    if spec.apply_groups <= 0:
-        raise NotImplementedError("brick grids without grouped apply are not ported")
+    Grouped path: bumps the slot's epoch through epoch_mask (invalidating
+    every entry of the old epoch) and clears `sweep_per_reset` rotating
+    directory entries so a wrapped epoch never false-validates a stale
+    entry; the pool's stale cells stay, unreachable until K1 zero-fills a
+    re-allocated group (`fresh`). Per-record path: the slot's directory
+    becomes -1 and its pool 0, written in place through (2, ·) views of
+    the banks with no host read."""
     dev = bank.counts.device
     pending = torch.as_tensor(pending, device=dev)
     slot = torch.as_tensor(slot, dtype=torch.int32, device=dev)
     in_slot = torch.arange(2, dtype=torch.int32, device=dev) == slot
     counts = torch.where(in_slot & pending, 0, bank.counts)
+    if spec.apply_groups <= 0:
+        here = (in_slot & pending)[:, None]
+        bank.directory.view(2, spec.num_dir_groups).masked_fill_(here, -1)
+        bank.pool.view(2, spec.num_pool_cells).masked_fill_(here, 0)
+        return bank._replace(counts=counts)
     old_epoch = _take(bank.epochs, slot)
     epochs = torch.where(in_slot & pending, (old_epoch + 1) & spec.epoch_mask, bank.epochs)
     k = spec.sweep_per_reset
@@ -223,11 +233,6 @@ def _insert_brick_slots(
     """One RangeDataInserter3D step into S slots with group allocation:
     every touched cell updates at most once, hits beating misses
     (range_data_inserter_3d.cc:78-92). Updates the bank in place."""
-    if spec.apply_groups <= 0:
-        raise NotImplementedError(
-            "brick insertion without grouped apply (the XLA fallback) is not ported")
-    from dliom_tpu_torch.ops.grouped_apply import apply_grouped_rows, build_group_tables
-
     hit_odds = hit_probability / (1.0 - hit_probability)
     miss_odds = miss_probability / (1.0 - miss_probability)
     k = int(num_free_space_voxels)
@@ -272,8 +277,11 @@ def _insert_brick_slots(
     s_g = (s_key >> 16).to(torch.int32)
     s_sec = (s_key & 0xFFFF).to(torch.int32)
     s_valid = s_g < ndg_flat
-    group_cap = npg - 1  # the pool's last group per slot is K1's parking row
+    if spec.apply_groups <= 0:
+        return _insert_records(bank, s_g, s_sec, s_valid, spec, hit_odds, miss_odds)
+    from dliom_tpu_torch.ops.grouped_apply import apply_grouped_rows, build_group_tables
 
+    group_cap = npg - 1  # the pool's last group per slot is K1's parking row
     rows_dir, starts, ends = build_group_tables(s_g, s_valid, int(spec.apply_groups))
     present = rows_dir >= 0  # absent steps trail (ranks are gapless)
     row_slot = torch.clamp(
@@ -316,6 +324,66 @@ def _insert_brick_slots(
         cells_per_group=cpg, hit_odds=hit_odds, miss_odds=miss_odds,
         fresh=alloc.to(torch.int32),
     )
+    return bank._replace(counts=counts, dropped=dropped)
+
+
+def _insert_records(bank: BrickBank, s_g, s_sec, s_valid, spec: BrickGridSpec, hit_odds: float,
+                    miss_odds: float) -> BrickBank:
+    """The per-record insert (`apply_groups == 0`) of records sorted by
+    (slot-qualified group, cell, kind). Each group's head record claims the
+    next pool group of its slot when its group has none (every pool group
+    may be claimed: there is no parking row); a group that does not fit
+    drops whole. The first record of each touched cell, a hit where there
+    is one, decides the cell's one update. Integer state is the JAX
+    package's bit for bit."""
+    dev = s_g.device
+    s_count = bank.counts.shape[0]
+    ndg, npg, cpg = spec.num_dir_groups, spec.num_pool_groups, spec.cells_per_group
+    ndg_flat = s_count * ndg
+    s_ar = torch.arange(s_count, dtype=torch.int32, device=dev)
+    s_cig, s_miss = s_sec >> 1, s_sec & 1
+    s_slot = torch.clamp(torch.div(s_g, ndg, rounding_mode="floor"), 0, s_count - 1)
+    group_head = torch.ones_like(s_valid)
+    group_head[1:] = s_g[1:] != s_g[:-1]
+    group_head &= s_valid
+    s_epoch = bank.epochs[s_slot.long()]
+    dec_pg, dec_ok = _decode_dir(bank.directory[torch.clamp(s_g, 0, ndg_flat - 1).long()], s_epoch, spec)
+    cur_pg = torch.where(dec_ok, dec_pg, -1)
+    # a group's records share its head's prefix count of claims, so every
+    # record of a claiming group computes the head's new pool group
+    needs = group_head & (cur_pg < 0)
+    needs_i = needs.to(torch.int32)
+    incl = torch.cumsum(needs_i, 0, dtype=torch.int32)
+    slot_first = torch.ones_like(s_valid)
+    slot_first[1:] = s_slot[1:] != s_slot[:-1]
+    slot_base = torch.cummax(torch.where(slot_first, incl - needs_i, 0), dim=0).values
+    counts_sel = torch.sum(
+        torch.where(s_slot[:, None] == s_ar[None, :], bank.counts[None, :], 0), dim=1, dtype=torch.int32)
+    new_pg = counts_sel + (incl - 1) - slot_base
+    fits = new_pg < npg
+    pg = torch.where(s_valid & (cur_pg >= 0), cur_pg,
+                     torch.where(s_valid & (cur_pg < 0) & fits, new_pg, -1))
+    alloc = needs & fits
+
+    # one head per group and one new pool group per claim: distinct indices
+    _scatter_(bank.directory, s_g, _encode_dir(new_pg, s_epoch, spec), alloc)
+    _scatter_(bank.group_of_slot, s_slot * npg + new_pg, s_g - s_slot * ndg, alloc)
+    counts = bank.counts + torch.sum(
+        (s_slot[:, None] == s_ar[None, :]) & alloc[:, None], dim=0, dtype=torch.int32)
+
+    # The JAX package writes the update at every record of a cell, all of
+    # them the same value; writing it at the cell's first record alone
+    # leaves the same pool with distinct indices.
+    cell_head = torch.ones_like(s_valid)
+    cell_head[1:] = (s_cig[1:] != s_cig[:-1]) | group_head[1:]
+    write = cell_head & s_valid & (pg >= 0)
+    addr = (s_slot.long() * spec.num_pool_cells + torch.clamp(pg, 0, npg - 1).long() * cpg
+            + s_cig.long())
+    current = bank.pool[torch.where(write, addr, 0)].to(torch.int32)
+    updated = torch.where(s_miss == 1, pv.apply_odds(current, miss_odds),
+                          pv.apply_odds(current, hit_odds))
+    _scatter_(bank.pool, addr, updated.to(GRID_DTYPE), write)
+    dropped = bank.dropped + torch.sum(needs & ~fits, dtype=torch.int32)
     return bank._replace(counts=counts, dropped=dropped)
 
 

@@ -94,12 +94,37 @@ def test_brick_insert_cuda_matches_cpu(cuda_device):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
 
 
+def test_brick_records_insert_cuda_matches_cpu(cuda_device):
+    """The per-record insert (`apply_groups` 0, plain PyTorch on both
+    devices) and its slot reset, pending or not, on the card against the
+    CPU run of the same code, bit for bit."""
+    spec = TB.BrickGridSpec(resolution=0.1, dir_extent=16, max_bricks=768, apply_groups=0)
+    rng = np.random.default_rng(2)
+    hits = torch.from_numpy(rng.normal(0, 1.5, (2, 512, 3)).astype(np.float32))
+    masks = torch.from_numpy(rng.random((2, 512)) < 0.9)
+    origins = torch.from_numpy(rng.normal(0, 0.3, (2, 3)).astype(np.float32))
+    kw = dict(spec=spec, hit_probability=0.55, miss_probability=0.49, num_free_space_voxels=2)
+    cpu = TB.make_brick_bank(spec)
+    gpu = TB.make_brick_bank(spec, cuda_device)
+    for slot, pending in ((0, True), (1, False), (1, True)):
+        cpu = TB._insert_brick_slots(cpu, origins, hits, masks, **kw)
+        gpu = TB._insert_brick_slots(gpu, origins.to(cuda_device), hits.to(cuda_device),
+                                     masks.to(cuda_device), **kw)
+        cpu = TB.reset_slot(cpu, spec, slot, torch.tensor(pending))
+        gpu = TB.reset_slot(gpu, spec, torch.tensor(slot, device=cuda_device),
+                            torch.tensor(pending, device=cuda_device))
+        hits = hits + 0.2
+    for f in TB.BrickBank._fields:
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+
+
 @pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("m", [1, 7, 48, 64, 200])
+@pytest.mark.parametrize("m", [1, 7, 32, 48, 64, 200])
 def test_affine_chain_scan_lengths(cuda_device, m, batch):
     """The scan at chain lengths below, at and above one sample per warp,
-    at the bench config's 48, the default 64, and 200 (more samples per
-    warp than its ring holds), with a masked tail of (I, 0) samples."""
+    at the dynamic initializer's padded segment of 32, the bench config's
+    48, the default 64, and 200 (more samples per warp than its ring
+    holds), with a masked tail of (I, 0) samples."""
     rng = np.random.default_rng(m * 10 + batch)
     f = np.eye(15) + 0.01 * rng.normal(size=(batch, m, 15, 15))
     q = rng.normal(size=(batch, m, 15, 15)) * 1e-3

@@ -217,9 +217,15 @@ def test_brick_lookups():
 
 
 def test_xla_fallback_not_ported():
-    spec = TB.BrickGridSpec(resolution=0.1, dir_extent=16, max_bricks=768, apply_groups=0)
-    with pytest.raises(NotImplementedError):
-        TB._insert_brick_slots(TB.make_brick_bank(spec), torch.zeros(2, 3), torch.zeros(2, 4, 3),
-                               torch.ones(2, 4, dtype=torch.bool), spec=spec, hit_probability=0.55,
-                               miss_probability=0.49, num_free_space_voxels=2)
+    """The XLA fallback (`apply_groups` 0) is ported now: the per-record
+    insert runs and matches JAX's bit for bit; tests/test_torch_brick_fallback.py
+    holds it through resets and a full pool."""
+    spec_kw = dict(resolution=0.1, dir_extent=16, max_bricks=768, apply_groups=0)
+    hits = np.random.default_rng(14).normal(0, 0.8, (2, 384, 3)).astype(np.float32)
+    jbank, tbank = _insert_both(spec_kw, JB.make_brick_bank(JB.BrickGridSpec(**spec_kw)),
+                                TB.make_brick_bank(TB.BrickGridSpec(**spec_kw)),
+                                np.zeros((2, 3), np.float32), hits, np.ones((2, 384), bool))
+    assert int(tbank.counts.sum()) > 0
+    for f in JB.BrickBank._fields:
+        np.testing.assert_array_equal(getattr(tbank, f).numpy(), np.asarray(getattr(jbank, f)), err_msg=f)
 
