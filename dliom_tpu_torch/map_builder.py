@@ -25,9 +25,10 @@ scan that finished it, before the next `lio_step` is queued. Under
 pipelining the pending scan's fetch is therefore read at the start of the
 next scan, before its step, rather than after it as in the JAX package.
 
-Not ported yet (they need `io/`): `add_navsat_data`, `save_checkpoint`,
-`map_builder_from_state` and `map_builder_from_checkpoint`, which raise
-NotImplementedError.
+Saved maps and checkpoints (`io/serialization.py`, `io/pbstream.py`):
+`save_checkpoint` snapshots a running builder and
+`map_builder_from_checkpoint` resumes it; `map_builder_from_state` loads a
+saved map (.npz or a Cartographer .pbstream) to localize against or extend.
 """
 
 from __future__ import annotations
@@ -55,9 +56,6 @@ from dliom_tpu_torch.sensor.range_synchronizer import RangeDataSynchronizer
 from dliom_tpu_torch.sensor.types import pad_point_cloud
 from dliom_tpu_torch.transform.interpolation import TransformInterpolationBuffer
 from dliom_tpu_torch.transform.rigid import Rigid3
-
-_IO_ITEM = "ROADMAP.md, Open items, queue 1, item 1 (IO, serialization and pbstream)"
-
 
 class _Fetch:
     """One scan's host-bound fields, packed into one float32 tensor and
@@ -126,6 +124,7 @@ class _TrajectoryBuilder:
         self._ff_buffer: List[Tuple[float, np.ndarray]] = []
         self._lm_buffer: List[Tuple[float, str, np.ndarray]] = []
         self._odom_buffer = TransformInterpolationBuffer()
+        self._navsat = None  # NavSatConverter, anchored by the first fix
         self._collator = None
         self._last_queue_time: dict = {}
         self.num_out_of_order_dropped = 0
@@ -457,7 +456,14 @@ class _TrajectoryBuilder:
         self._ff_buffer.append((float(time), np.asarray(position, np.float32)))
 
     def add_navsat_data(self, time, latitude, longitude, altitude):
-        raise NotImplementedError(f"add_navsat_data needs io/geodesy.py, not ported: {_IO_ITEM}")
+        """Geodetic fix -> local fixed-frame position (sensor_bridge.cc:87-111:
+        the first fix anchors the ECEF->local frame, every fix becomes a
+        fixed-frame observation)."""
+        if self._navsat is None:
+            from dliom_tpu_torch.io.geodesy import NavSatConverter
+
+            self._navsat = NavSatConverter()
+        self.add_fixed_frame_pose_data(time, self._navsat.to_local(latitude, longitude, altitude))
 
     def add_landmark_data(self, time, landmark_id, position_in_tracking):
         self._lm_buffer.append((float(time), str(landmark_id),
@@ -660,7 +666,14 @@ class MapBuilder:
         return 0 in self._trajectories and self._trajectories[0].initialized
 
     def save_checkpoint(self, path: str, config_preset: str = "basic"):
-        raise NotImplementedError(f"save_checkpoint needs io/serialization.py, not ported: {_IO_ITEM}")
+        """Snapshot the running state: the map, every trajectory's device
+        state (LIO window, biases, active submap banks) and its host
+        bookkeeping; `map_builder_from_checkpoint` resumes it mid-submap with
+        the same subsequent results (io/serialization.py says what is saved
+        and what is refused)."""
+        from dliom_tpu_torch.io.serialization import save_live_checkpoint
+
+        save_live_checkpoint(path, self, config_preset)
 
     @property
     def num_trajectory_builders(self) -> int:
@@ -669,10 +682,34 @@ class MapBuilder:
 
 def map_builder_from_state(path: str, config: EngineConfig, pure_localization: bool = True,
                            **kwargs) -> MapBuilder:
-    raise NotImplementedError(
-        f"map_builder_from_state needs io/serialization.py and io/pbstream.py, not ported: {_IO_ITEM}")
+    """Localize against or extend a saved map (MapBuilder::LoadState,
+    map_builder.cc:209-367): a new builder whose live trajectory 0 maps
+    against the loaded trajectories, remapped onto fresh ids. With
+    `pure_localization` the loaded trajectories are frozen and the live one
+    keeps only its 3 newest submaps (PureLocalizationTrimmer,
+    map_builder.cc:147-151). `path` is the .npz state or a reference-schema
+    .pbstream. `kwargs` go to MapBuilder (`device`, `use_background_threads`,
+    `pipeline_depth`, ...)."""
+    builder = MapBuilder(config, **kwargs)
+    if path.endswith(".pbstream"):
+        from dliom_tpu_torch.io.pbstream import load_pbstream_into
+
+        load_pbstream_into(builder.pose_graph, path, frozen=pure_localization)
+    else:
+        from dliom_tpu_torch.io.serialization import load_state_into
+
+        load_state_into(builder.pose_graph, path, config, frozen=pure_localization)
+    builder._pure_localization = pure_localization
+    return builder
 
 
 def map_builder_from_checkpoint(path: str, config: EngineConfig, **kwargs) -> MapBuilder:
-    raise NotImplementedError(
-        f"map_builder_from_checkpoint needs io/serialization.py, not ported: {_IO_ITEM}")
+    """Resume a running map from a `MapBuilder.save_checkpoint` file, with
+    its trajectory ids, device state and host bookkeeping; `config` must be
+    the one it was saved under (each state tensor's shape and dtype are
+    checked). `kwargs` go to MapBuilder."""
+    from dliom_tpu_torch.io.serialization import restore_live_checkpoint
+
+    builder = MapBuilder(config, create_default_trajectory=False, **kwargs)
+    restore_live_checkpoint(builder, path)
+    return builder

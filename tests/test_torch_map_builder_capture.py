@@ -6,8 +6,7 @@ banks are updated in place, so a finished submap's grids are captured
 for bit, what the JAX package's capture (`compress` of the slot, or
 `compress_brick`) computes from the same bank state — on a dense, a mixed
 (brick high, dense low) and a two-brick config. The stream and config are
-tests/test_torch_map_builder.py's. Also: the IO-dependent entry points
-raise NotImplementedError naming their ROADMAP item."""
+tests/test_torch_map_builder.py's."""
 
 import jax
 import jax.numpy as jnp
@@ -94,14 +93,3 @@ def test_pipelined_capture_bit_identical(grids, monkeypatch):
         np.testing.assert_array_equal(b.high_points, a.high_points)
     finished = [s for s in builders[1].pose_graph.submaps if s.finished]
     assert finished and all(int(s.high.count) > 0 for s in finished)
-
-
-def test_io_dependent_entry_points_raise():
-    over = _overrides()
-    b = TMB.MapBuilder(t_load_config("basic", over), device="cpu")
-    for call in (lambda: b.add_navsat_data(0.0, 48.0, 11.0, 500.0),
-                 lambda: b.save_checkpoint("x.npz"),
-                 lambda: TMB.map_builder_from_state("x.npz", b.config),
-                 lambda: TMB.map_builder_from_checkpoint("x.npz", b.config)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
