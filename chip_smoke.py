@@ -37,7 +37,8 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      bench_e2e's config (dense 0.2 m / 0.8 m grids, extents 128 / 64,
      dense_apply_groups 256, 2 background threads, pipeline_depth 1):
      static start, a warm-up lap and a bit (the revisit closes loops), a
-     timed stretch, a short profiled window after a warm-up cycle of the
+     timed stretch, a short profiled window (the card's activity: busy
+     time, idle share, the costliest kernels) after a warm-up cycle of the
      same length, `finish_trajectory()`. Checks:
      initialized, finite poses, no failure reset, zero dropped groups, at
      least one INTER constraint, the final optimization ran, K1's dense
@@ -79,8 +80,9 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      odometry observations, exactly) and so are the trajectory buffers;
      then A and B take the same next CKPT_NEXT scans: B launches K1's dense
      entry twice and K2 once per stepped scan, the counts of nodes, submaps
-     and constraints agree, and the graphs are bit-identical (or, if the
-     card proves nondeterministic, poses within 2e-3, which is reported);
+     and constraints agree, every node and submap histogram is
+     bit-identical (the sums are deterministic, ops/segment.py), and so are
+     the graphs (or poses within 2e-3, which is reported);
      the checkpoint's bytes and the save and restore times are printed.
      (b) `write_pbstream` of A's graph loaded back on the card with
      `map_builder_from_state(pure_localization=True)`: the same counts,
@@ -92,7 +94,28 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      INTER constraint, the node within 0.4 m of the origin). (d)
      `runner.offline.run` over the synthetic corkscrew on the card with
      state, pbstream and CSV outputs: the JAX runner's report keys, ATE,
-     K2 once per stepped scan, the state reloads.
+     K2 once per stepped scan, the state reloads;
+ 11. batched LIO on the card (dliom_tpu_torch/parallel/batch.py): (a) the
+     bench config at B = 1, 2, 4, 8 sequences in lockstep, each lane on the
+     corkscrew in its own world, K1's capacities SPAWN_CAPACITIES x B:
+     BATCH_WARMUP steps, then BATCH_TIMED timed ones: finite poses, no
+     failure reset, zero dropped groups, exactly 2 K1 and 1 K2 launches per
+     batched step, device kernels per step (torch.profiler with the card's
+     activity only, after a warm-up cycle, at B = 1 and 8) at B = 8 at most
+     1.5 x those at B = 1; aggregate and per-sequence scans/s, K1 and K2
+     launches per step and peak device memory per B beside phase 5's
+     single-sequence rate (tools/torch_batch_scaling.py --profile prints
+     the spans of a batched step). (b) B = 2 at num_range_data 2
+     (printed as `reduced`), lane 1's first scan empty so the lanes spawn on
+     different steps, across a slot recycle: on every step each lane's pose
+     against `lio_step` from that lane's own pre-step state and input on
+     the card (2e-3), and the flat 2B-slot insert against each lane's own
+     2-slot insert of the same InsertionBatch on a copy of its banks,
+     directory, pool, counts, group_of_slot, epochs and dropped bit for bit.
+     (c) bench_e2e's dense grids at B = 4 across a spawn: K1's dense entry
+     twice per batched step, each call bit-identical to its plain version
+     on a CPU copy. Phase 3 adds K1 at 16 slots with 8 x the capacities and
+     phase 4 K2 at B = 8, M = 48, the batched step's shapes.
 
 Phase 8 compares step by step, not the free-running CPU trajectory: on
 this course an input change of 1e-6 moves the CPU run's fifth local pose
@@ -167,6 +190,18 @@ CKPT_RANGE_DATA = 8  # bench_e2e ships 16: at 16 phase 10 took 120.6 s on an H10
 CKPT_AFTER_FINISH = 3  # scans fed after the first submap finishes, then the checkpoint
 CKPT_NEXT = 6  # scans fed to builders A and B after the checkpoint
 PHASE10_AIM_S = 120.0
+BATCHES = (1, 2, 4, 8)  # phase 11 (a): sequences per batched step
+BATCH_WARMUP = 1  # phases 5-10 ran the single-lane step's kernels before
+BATCH_TIMED = 4
+BATCH_COUNTED = 1  # batched steps whose device kernels are counted, after a warm-up cycle as long
+BATCH_LAUNCH_RATIO = 1.5  # device kernels per step at the largest B over B = 1, at most
+LANE_OFFSET = np.array([0.25, -0.15, 0.05], np.float32)  # m: lane b's world is offset b times this
+LANES_RANGE_DATA = 2  # phase 11 (b): bench.py ships 100; 2 spawns and recycles within LANES_STEPS
+LANES_STEPS = 6  # lane 0 recycles a slot at step 4, lane 1 (first scan empty) at step 5
+DENSE_LANES = 4  # phase 11 (c)
+DENSE_LANES_RANGE_DATA = 2  # bench_e2e ships 16: a spawn at the third step
+DENSE_LANES_STEPS = 3
+PHASE11_AIM_S = 120.0
 FIXTURE = "tests/fixtures/reference_map.pbstream"
 FIXTURE_OVERRIDES = {  # tests/test_pose_graph.py::_cfg, the fixture's grid specs
     "trajectory_builder": {"submaps": {"high_resolution": 0.2, "low_resolution": 0.8,
@@ -382,7 +417,7 @@ def grouped_apply_case(rng, cells_per_group, num_groups, num_steps, num_records,
     """A bank and one insert's tables at a bench shape: sorted records with
     duplicate cells and mixed hit/miss, fresh steps, and empty-range steps
     (parking and mid-sequence drops) sharing the parking row."""
-    bank = rng.integers(0, 32768, num_groups * cells_per_group).astype(np.int16)
+    bank = rng.integers(0, 32768, num_groups * cells_per_group, dtype=np.int16)
     park = num_groups - 1
     rows = np.full(num_steps, park, np.int32)
     rows[:real_steps] = rng.choice(park, real_steps, replace=False)
@@ -406,11 +441,15 @@ def check_grouped_apply(ga, rng):
     out = {}
     # (cells_per_group, pool groups over both slots, steps, steps with
     # records): high and low bricks at bench.py's and at the spawn capacities
-    for tag, cpg, groups, steps, real in (("high", 16384, 2 * 2048, 512, 440),
-                                          ("low", 4096, 2 * 1024, 192, 170),
-                                          ("high_spawn", 16384, 2 * 2048, 1024, 900),
-                                          ("low_spawn", 4096, 2 * 1024, 384, 260)):
-        bank, rows, starts, ends, keys, fresh = grouped_apply_case(rng, cpg, groups, steps, 49152, real)
+    for tag, cpg, groups, steps, real, records in (
+            ("high", 16384, 2 * 2048, 512, 440, 49152),
+            ("low", 4096, 2 * 1024, 192, 170, 49152),
+            ("high_spawn", 16384, 2 * 2048, 1024, 900, 49152),
+            ("low_spawn", 4096, 2 * 1024, 384, 260, 49152),
+            # phase 11's batched step at B = 8: 16 slots, 8 x the capacities
+            ("high_batch8", 16384, 16 * 2048, 8 * 1024, 8 * 900, 8 * 49152),
+            ("low_batch8", 4096, 16 * 1024, 8 * 384, 8 * 260, 8 * 49152)):
+        bank, rows, starts, ends, keys, fresh = grouped_apply_case(rng, cpg, groups, steps, records, real)
         kw = dict(cells_per_group=cpg, hit_odds=hit_odds, miss_odds=miss_odds, fresh=fresh)
         k = ga.apply_grouped_rows(bank.clone(), rows, starts, ends, keys, **kw)
         p = ga.apply_grouped_rows_plain(bank.clone(), rows, starts, ends, keys, **kw)
@@ -430,10 +469,11 @@ def check_grouped_apply(ga, rng):
 
 def check_affine_chain(ac, rng):
     out = {}
-    for m in K2_LENGTHS:
-        f = torch.from_numpy((np.eye(15) + 0.01 * rng.normal(size=(m, 15, 15))).astype(np.float32)).cuda()
-        q = rng.normal(size=(m, 15, 15)).astype(np.float32) * 1e-3
-        q = torch.from_numpy(q @ np.swapaxes(q, 1, 2)).cuda()
+    for batch, m in [(1, m) for m in K2_LENGTHS] + [(max(BATCHES), IMU_CAP)]:
+        shape = (m, 15, 15) if batch == 1 else (batch, m, 15, 15)
+        f = torch.from_numpy((np.eye(15) + 0.01 * rng.normal(size=shape)).astype(np.float32)).cuda()
+        q = rng.normal(size=shape).astype(np.float32) * 1e-3
+        q = torch.from_numpy(q @ np.swapaxes(q, -1, -2)).cuda()
         a_k, p_k = ac.affine_chain(f, q)
         a_p, p_p = ac.affine_chain_plain(f, q)
         torch.cuda.synchronize()
@@ -441,9 +481,9 @@ def check_affine_chain(ac, rng):
         torch.testing.assert_close(p_k, p_p, rtol=1e-5, atol=1e-6)
         err = float(max((a_k - a_p).abs().max(), (p_k - p_p).abs().max()))
         t = timings(lambda: ac.affine_chain(f, q), lambda: ac.affine_chain_plain(f, q))
-        t["bound_ms"], t["bound_by"] = bound(*k2_work(1, m))
-        print(f"K2 affine_chain M={m}: max abs err {err:.3e} (rtol 1e-5, atol 1e-6); {fmt_times(t)}")
-        out[m] = dict(t, max_abs_err=err)
+        t["bound_ms"], t["bound_by"] = bound(*k2_work(batch, m))
+        print(f"K2 affine_chain B={batch} M={m}: max abs err {err:.3e} (rtol 1e-5, atol 1e-6); {fmt_times(t)}")
+        out[m if batch == 1 else f"B{batch}_M{m}"] = dict(t, max_abs_err=err)
     return out
 
 
@@ -475,6 +515,45 @@ def bench_scans(device):
     return scan
 
 
+def lane_scans(device, batch, n, n_points=CAPACITY, imu_cap=IMU_CAP, empty_first=()):
+    """n steps of B-stacked scans: lane b on bench_scans' ten corkscrew
+    poses, cycled, cast in its own world (offset b * LANE_OFFSET), with
+    bench.py's IMU recipe, stamped 0.6 s apart; the lanes in `empty_first`
+    see no points on the first step."""
+    from dliom_tpu_torch.frontend.lio import LioScanInput
+    from dliom_tpu_torch.io.synthetic import SyntheticWorld, corkscrew_trajectory
+    from dliom_tpu_torch.sensor.types import pad_point_cloud
+    from dliom_tpu_torch.transform.rigid import Rigid3
+
+    world = SyntheticWorld.create()
+    poses = [p for _, p in corkscrew_trajectory()[:10]]
+    clouds = {}
+    rng = np.random.default_rng(0)
+    valid = imu_cap * 5 // 6  # 40 of bench.py's 48
+    out = []
+    for i in range(n):
+        lanes = []
+        for b in range(batch):
+            key = (b, i % len(poses))
+            if key not in clouds:
+                pose = poses[key[1]]
+                clouds[key] = pad_point_cloud(*world.cast_scan(Rigid3(
+                    pose.rotation, pose.translation + b * LANE_OFFSET)), n_points)
+            cloud = clouds[key]
+            accs = np.tile(np.array([0, 0, G], np.float32), (imu_cap, 1))
+            accs += rng.normal(0, 0.01, accs.shape).astype(np.float32)
+            lanes.append(dict(
+                time=np.float32(0.6 * (i + 1)), points=np.asarray(cloud.points),
+                times=np.asarray(cloud.times),
+                mask=np.asarray(cloud.mask) & (i > 0 or b not in empty_first),
+                imu_dts=np.full(imu_cap, 0.0025, np.float32), imu_acc=accs,
+                imu_gyr=rng.normal(0, 0.002, (imu_cap, 3)).astype(np.float32),
+                imu_mask=np.arange(imu_cap) < valid))
+        out.append(LioScanInput(**{k: torch.from_numpy(np.stack([x[k] for x in lanes])).to(device)
+                                   for k in LioScanInput._fields}))
+    return out
+
+
 def fresh_state(cfg, device):
     from dliom_tpu_torch.frontend.lio import make_lio_state
     from dliom_tpu_torch.imu.preintegration import NavState
@@ -483,15 +562,18 @@ def fresh_state(cfg, device):
     return make_lio_state(cfg, NavState.identity(device), zero, zero)
 
 
-def warm_profile(cycles):
+def warm_profile(cycles, host=True):
     """torch.profiler over the last of `cycles` (callables run in turn): the
     first is a warm-up cycle, whose events are dropped (a profile without
-    one lost device events at its start, PERF.md Findings, PR 3). Returns
-    (the profiler, host ms of the recorded cycle)."""
+    one lost device events at its start, PERF.md Findings, PR 3). With
+    `host=False` only the card's activity is recorded: no host ops or
+    spans, and the events take seconds, not tens, to read. Returns (the
+    profiler, host ms of the recorded cycle)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CPU] if host else []
+    with profile(activities=activities + [ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=len(cycles) - 1, active=1, repeat=1)) as prof:
         for cycle in cycles:
             t0 = time.perf_counter()
@@ -860,7 +942,10 @@ def check_mapping(ga, ac, dev):
         return run
 
     a = n_warm + E2E_TIMED
-    prof, prof_wall = warm_profile([cycle(course[a:a + E2E_PROFILED]), cycle(course[a + E2E_PROFILED:])])
+    # the card's activity only: these figures read nothing else, and a
+    # profile with host ops took ~70 s to read here
+    prof, prof_wall = warm_profile([cycle(course[a:a + E2E_PROFILED]), cycle(course[a + E2E_PROFILED:])],
+                                   host=False)
     busy, top = card_busy_ms(prof.events())
 
     spa_before = pg.phase_seconds.get("spa", 0.0)
@@ -889,7 +974,7 @@ def check_mapping(ga, ac, dev):
           f"dense groups dropped {drops}; launches {launches}")
     print("mapping: phase_seconds over the timed stretch: "
           + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
-    print(f"mapping: profiled {E2E_PROFILED} scans: {prof_wall / E2E_PROFILED:.1f} ms/scan wall, "
+    print(f"mapping: profiled {E2E_PROFILED} scans (card activity only): {prof_wall / E2E_PROFILED:.1f} ms/scan wall, "
           f"card busy {busy / E2E_PROFILED:.2f} ms/scan, idle share {1 - busy / prof_wall:.3f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     for name, ms, n in top:
@@ -1488,6 +1573,8 @@ def check_checkpoint(ga, ac, dev, tmp):
           "phase 10: A and B hold as many nodes, submaps and constraints")
     differ = graph_differences(pg, pb)
     exact = not differ
+    check(not [d for d in differ if "histogram" in d],
+          f"phase 10: A's and B's node and submap histograms differ: {differ[:5]}")
     worst = 0.0
     for x, y in zip(pg.nodes, pb.nodes):
         for u, v in ((x.local_pose, y.local_pose), (x.global_pose, y.global_pose)):
@@ -1654,7 +1741,211 @@ def check_io(ga, ac, dev):
                                  "runner": runner}
 
 
+def batched_config(overrides, lanes, capacities, **submaps):
+    """The engine config at `lanes` sequences: K1's per-call `capacities`
+    times the lanes (one call holds every lane's groups)."""
+    from dliom_tpu_torch.common.config import load_config
+
+    caps = {k: lanes * v for k, v in capacities.items()}
+    return load_config("basic", overrides).override({"trajectory_builder": {"submaps": {**caps, **submaps}}})
+
+
+def batched_scaling(ga, ac, dev, single_rate):
+    """Phase 11 (a): the bench config at B = BATCHES, each lane on its own
+    world. Per B: BATCH_WARMUP steps, then BATCH_TIMED timed steps (K1 and
+    K2 counted); at the smallest and largest B, device kernels and their
+    time per step from torch.profiler (the card's activity only) after a
+    warm-up cycle (tools/torch_batch_scaling.py --profile prints the spans
+    at every B). Returns (rows, K1 launches, K2 launches)."""
+    from dliom_tpu_torch.parallel.batch import make_batched_lio_state, make_batched_lio_step
+
+    import gc
+
+    rows, k1, k2 = {}, 0, 0
+    all_lanes = lane_scans(dev, max(BATCHES), 10)
+    for b in BATCHES:
+        t_b = time.perf_counter()
+        cfg = batched_config(BENCH_OVERRIDES, b, SPAWN_CAPACITIES).trajectory_builder
+        scans = [type(s)(*(x[:b] for x in s)) for s in all_lanes]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        box = {"state": make_batched_lio_state(cfg, b, dev), "i": 0, "results": []}
+        step = make_batched_lio_step(cfg, b)
+
+        def run(n):
+            for _ in range(n):
+                box["state"], res = step(box["state"], scans[box["i"] % len(scans)])
+                box["results"].append(res)
+                box["i"] += 1
+
+        run(BATCH_WARMUP)
+        torch.cuda.synchronize()
+        ga.LAUNCHES = 0  # the batched main path starts: zero the launch counts
+        ac.LAUNCHES = 0
+        t0 = time.perf_counter()
+        run(BATCH_TIMED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"grouped_apply": ga.LAUNCHES, "affine_chain": ac.LAUNCHES}
+        k1, k2 = k1 + ga.LAUNCHES, k2 + ac.LAUNCHES
+        check(launches == {"grouped_apply": 2 * BATCH_TIMED, "affine_chain": BATCH_TIMED},
+              f"phase 11: B={b} launches {launches} for {BATCH_TIMED} steps (2 K1, 1 K2 per step)")
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        t_prof = time.perf_counter()
+        per_step = idle = None
+        if b in (BATCHES[0], BATCHES[-1]):
+            prof, prof_wall = warm_profile([lambda: run(BATCH_COUNTED), lambda: run(BATCH_COUNTED)],
+                                           host=False)
+            events = prof.events()
+            busy, _ = card_busy_ms(events)
+            per_step = len(device_events(events)) / BATCH_COUNTED
+            check(per_step > 0, f"phase 11: B={b}: the profiler saw no device kernels")
+            idle = 1 - busy / prof_wall
+            del prof, events
+        state = box["state"]
+        sm = state.frontend.submaps
+        drops = {"brick": int(sm.high_brick.dropped.sum()), "low_brick": int(sm.low_brick.dropped.sum()),
+                 "dense": int(sm.dense_dropped.sum())}
+        for k, r in enumerate(box["results"]):
+            pose = r.scan.local_pose
+            check(bool(torch.isfinite(pose.translation).all() and torch.isfinite(pose.rotation).all()),
+                  f"phase 11: B={b} step {k} poses finite")
+            check(not bool(r.failed.any()), f"phase 11: B={b} step {k} failed")
+        check(int(state.failures.sum()) == 0, f"phase 11: B={b} no failure resets")
+        check(not any(drops.values()), f"phase 11: B={b} dropped grid updates {drops}")
+        rows[b] = {"aggregate_scans_per_s": b * BATCH_TIMED / wall, "per_seq_scans_per_s": BATCH_TIMED / wall,
+                   "device_kernels_per_step": per_step, "idle_share": idle, "peak_mem_mib": peak}
+        r = rows[b]
+        profiled = (f"{per_step:.0f} device kernels per step, card idle {idle:.3f}" if per_step is not None
+                    else "kernels not counted")
+        print(f"batched B={b}: {r['aggregate_scans_per_s']:.3f} scans/s aggregate, "
+              f"{r['per_seq_scans_per_s']:.3f} per sequence (phase 5 single sequence {single_rate:.3f}); "
+              f"{profiled}; K1 and K2 per step {launches['grouped_apply'] / BATCH_TIMED:.0f} and "
+              f"{launches['affine_chain'] / BATCH_TIMED:.0f}; peak device memory {peak:.0f} MiB above the "
+              f"{held / 2**20:.0f} MiB held before; drops {drops}; {time.perf_counter() - t_b:.1f} s "
+              f"({time.perf_counter() - t_prof:.1f} s counting kernels)", flush=True)
+        del box, state, sm, scans
+    lo, hi = rows[BATCHES[0]]["device_kernels_per_step"], rows[BATCHES[-1]]["device_kernels_per_step"]
+    check(hi <= BATCH_LAUNCH_RATIO * lo, f"phase 11: {hi:.0f} kernels per step at B={BATCHES[-1]} over "
+          f"{BATCH_LAUNCH_RATIO} x {lo:.0f} at B={BATCHES[0]}")
+    return rows, k1, k2
+
+
+def batched_lanes(dev):
+    """Phase 11 (b): B = 2 at the bench config (num_range_data cut so that
+    spawns and a slot recycle happen; lane 1's first scan is empty, so the
+    lanes spawn on different steps). On every step each lane's pose against
+    `lio_step` from that lane's own pre-step state and input on the card,
+    and the flat 2B-slot insert against each lane's own 2-slot insert of
+    the same InsertionBatch on a copy of its banks, bit for bit."""
+    from dliom_tpu_torch.frontend.lio import LioScanInput, lio_step
+    from dliom_tpu_torch.mapping.brick_grid import BrickBank
+    from dliom_tpu_torch.mapping.submap import InsertionBatch, write_insertion_batch
+    from dliom_tpu_torch.parallel import batch as pb
+
+    lanes = 2
+    cfg = batched_config(BENCH_OVERRIDES, lanes, SPAWN_CAPACITIES,
+                         num_range_data=LANES_RANGE_DATA).trajectory_builder
+    state = pb.make_batched_lio_state(cfg, lanes, dev)
+    worst, spawns, compared = 0.0, {b: [] for b in range(lanes)}, 0
+    for k, inp in enumerate(lane_scans(dev, lanes, LANES_STEPS, empty_first=(1,))):
+        pre = [pb.lane_state(cfg, state, b) for b in range(lanes)]
+        state = pb.clear_spawned_slots(cfg, state)
+        state, res = pb.lio_lanes(state, inp, cfg)
+        sm = state.frontend.submaps
+        before = sm._replace(high_brick=BrickBank(*(x.clone() for x in sm.high_brick)),
+                             low_brick=BrickBank(*(x.clone() for x in sm.low_brick)))
+        sm = pb.write_flat_insertion(cfg, sm, res.scan.insertion_batch)
+        state = state._replace(frontend=state.frontend._replace(submaps=sm))
+        drops = {}
+        for b in range(lanes):
+            _, one = lio_step(pre[b], LioScanInput(*(x[b] for x in inp)), cfg)
+            d = max(float((res.scan.local_pose.translation[b] - one.scan.local_pose.translation).abs().max()),
+                    float((res.scan.local_pose.rotation[b] - one.scan.local_pose.rotation).abs().max()))
+            worst = max(worst, d)
+            check(d <= POSE_ATOL, f"phase 11: step {k} lane {b}: batched vs single pose {d:.3e} > {POSE_ATOL}")
+            check(bool(res.scan.inserted[b]) == bool(one.scan.inserted), f"phase 11: step {k} lane {b} inserted")
+            if int(res.scan.finished_submap[b]) >= 0:
+                spawns[b].append(k)
+            own = pb.lane_banks(cfg, before, b)
+            out = write_insertion_batch(own["high_values"], own["low_values"], own["high_brick"],
+                                        InsertionBatch(*(x[b] for x in res.scan.insertion_batch)),
+                                        cfg.submaps, low_brick=own["low_brick"])
+            flat = pb.lane_banks(cfg, sm, b)
+            for name in ("high_brick", "low_brick"):
+                for f in ("directory", "pool", "counts", "group_of_slot", "epochs"):
+                    check(torch.equal(getattr(out[name], f), getattr(flat[name], f)),
+                          f"phase 11: step {k} lane {b} {name}.{f}: flat insert vs the lane's own")
+                drops[name] = drops.get(name, 0) + int(out[name].dropped.sum())
+            compared += 1
+        for name in ("high_brick", "low_brick"):
+            got = int(getattr(sm, name).dropped.sum()) - int(getattr(before, name).dropped.sum())
+            check(got == drops[name] == 0, f"phase 11: step {k} {name} dropped {got} vs lanes' {drops[name]}")
+    created = state.frontend.submaps.num_created.tolist()
+    check(all(spawns.values()) and spawns[0] != spawns[1] and min(created) >= 3,
+          f"phase 11: lanes spawn on different steps {spawns} and recycle a slot ({created} created)")
+    print(f"batched lanes: B={lanes}, {LANES_STEPS} steps, spawns {spawns}, submaps created {created}: every "
+          f"step's poses within {worst:.3e} of the lanes' own lio_step (tolerance {POSE_ATOL}); {compared} flat "
+          "inserts bit-identical to the lanes' own", flush=True)
+    return {"steps": LANES_STEPS, "spawns": spawns, "pose_diff": worst, "inserts_compared": compared}
+
+
+def batched_dense(ga, dev):
+    """Phase 11 (c): bench_e2e's dense grids at B = DENSE_LANES across a
+    spawn; every call of K1's dense entry against its plain version on a
+    CPU copy of the same bank and keys, bit for bit, `dropped` included."""
+    from dliom_tpu_torch.parallel.batch import make_batched_lio_state, make_batched_lio_step
+
+    cfg = batched_config(E2E_OVERRIDES, DENSE_LANES,
+                         {"dense_apply_groups": E2E_OVERRIDES["trajectory_builder"]["submaps"]["dense_apply_groups"]},
+                         num_range_data=DENSE_LANES_RANGE_DATA).trajectory_builder
+    dense, calls = ga.apply_grouped_updates, []
+
+    def held(pool, keys, **kw):
+        before, keys_c = pool.to("cpu", copy=True), keys.cpu()
+        pool, dropped = dense(pool, keys, **kw)
+        want, want_dropped = ga.apply_grouped_updates_plain(before, keys_c, **kw)
+        calls.append((torch.equal(pool.cpu(), want), int(dropped), int(want_dropped)))
+        return pool, dropped
+
+    state = make_batched_lio_state(cfg, DENSE_LANES, dev)
+    step = make_batched_lio_step(cfg, DENSE_LANES)
+    ga.apply_grouped_updates = held
+    try:
+        for inp in lane_scans(dev, DENSE_LANES, DENSE_LANES_STEPS):
+            state, res = step(state, inp)
+    finally:
+        ga.apply_grouped_updates = dense
+    sm = state.frontend.submaps
+    spawned = bool((sm.num_created >= 2).all())
+    check(len(calls) == 2 * DENSE_LANES_STEPS, f"phase 11: {len(calls)} K1 dense calls for {DENSE_LANES_STEPS} steps")
+    check(all(eq and d == w == 0 for eq, d, w in calls), f"phase 11: K1 dense calls vs plain {calls}")
+    check(spawned and int(sm.dense_dropped.sum()) == 0, "phase 11: dense lanes spawned, no drops")
+    print(f"batched dense: B={DENSE_LANES}, {DENSE_LANES_STEPS} steps across a spawn: {len(calls)} K1 dense calls "
+          f"(2 per step) bit-identical to plain on a CPU copy of {sm.high_values.numel()} + "
+          f"{sm.low_values.numel()} cells", flush=True)
+    return {"lanes": DENSE_LANES, "steps": DENSE_LANES_STEPS, "k1_dense_calls": len(calls)}
+
+
+def check_batched(ga, ac, dev, single_rate):
+    """Phase 11: batched LIO on the card."""
+    t0 = time.perf_counter()
+    rows, k1, k2 = batched_scaling(ga, ac, dev, single_rate)
+    t1 = time.perf_counter()
+    lanes = batched_lanes(dev)
+    t2 = time.perf_counter()
+    dense = batched_dense(ga, dev)
+    seconds = time.perf_counter() - t0
+    print(f"phase 11: {seconds:.1f} s (aim {PHASE11_AIM_S:.0f} s; (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+          f"(c) {t0 + seconds - t2:.1f})", flush=True)
+    return {"grouped_apply": k1, "affine_chain": k2}, {"scaling": rows, "lanes": lanes, "dense": dense,
+                                                        "seconds": seconds}
+
+
 def main():
+    start = time.perf_counter()
     card = environment()
     import dliom_tpu_torch  # noqa: F401  (pins f32, TF32 off)
     from dliom_tpu_torch import kernels
@@ -1670,11 +1961,15 @@ def main():
     rng = np.random.default_rng(0)
     k1 = check_grouped_apply(ga, rng)
     k2 = check_affine_chain(ac, rng)
+    t5 = time.perf_counter()
     launches, scans_per_s = check_slice(ga, ac, get_device("cuda"))
+    print(f"phases 5-6: {time.perf_counter() - t5:.1f} s")
     k1d, dense_kernels = check_dense_grouped_apply(ga, rng)
     check(0 < dense_kernels <= 2, f"K1 dense entry: {dense_kernels} device kernels per call, "
           "not 1 or 2")
+    t8 = time.perf_counter()
     map_launches, mapping = check_mapping(ga, ac, get_device("cuda"))
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s")
     t9 = time.perf_counter()
     campus_k2, campus = check_campus(ac, get_device("cuda"))
     viral_k2, viral = check_viral(ac, get_device("cuda"))
@@ -1684,16 +1979,19 @@ def main():
     io_launches, runner_k2, io = check_io(ga, ac, get_device("cuda"))
     phase10_s = time.perf_counter() - t10
     print(f"phase 10: {phase10_s:.1f} s (aim {PHASE10_AIM_S:.0f} s)")
+    batched_launches, batched = check_batched(ga, ac, get_device("cuda"), scans_per_s)
     check("jax" not in sys.modules, "no jax imported")
     k2_launches = {"slice": launches["affine_chain"], "mapping": map_launches["affine_chain"],
                    "campus": campus_k2, "viral": viral_k2, "correlative": rtc_k2,
-                   "checkpoint": io_launches["affine_chain"], "runner": runner_k2}
+                   "checkpoint": io_launches["affine_chain"], "runner": runner_k2,
+                   "batched": batched_launches["affine_chain"]}
+    k1_launches = {"slice": launches["grouped_apply"], "batched": batched_launches["grouped_apply"]}
     dense_launches = {"mapping": map_launches["grouped_apply_dense"],
                       "checkpoint": io_launches["grouped_apply_dense"]}
 
     print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "mapping": mapping,
                       "campus": campus, "viral": viral, "correlative": correlative, "io": io,
-                      "phase10_seconds": phase10_s,
+                      "phase10_seconds": phase10_s, "batched": batched,
                       "dense_kernels_per_call": dense_kernels,
                       "grouped_apply_by_shape": {**k1, **k1d},
                       "affine_chain_by_length": k2, "affine_chain_launches": k2_launches,
@@ -1703,7 +2001,12 @@ def main():
                                   "campus": "none",
                                   "checkpoint": f"submaps.num_range_data 16 -> {CKPT_RANGE_DATA}: "
                                                 "at 16 phase 10 took 120.6 s on an H100 80GB HBM3 "
-                                                "(700 W), over its 120 s aim"}}))
+                                                "(700 W), over its 120 s aim",
+                                  "batched_lanes": f"submaps.num_range_data 100 -> {LANES_RANGE_DATA}: "
+                                                   "spawns and a slot recycle within "
+                                                   f"{LANES_STEPS} steps",
+                                  "batched_dense": f"submaps.num_range_data 16 -> {DENSE_LANES_RANGE_DATA}: "
+                                                   f"a spawn within {DENSE_LANES_STEPS} steps"}}))
 
     def record(name, source, replaces, n, timed, err, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
@@ -1713,8 +2016,8 @@ def main():
 
     print(json.dumps({"kernels": [
         record("grouped_apply", "dliom_tpu_torch/csrc/grouped_apply.cu",
-               "dliom_tpu/ops/pallas_apply.py:257", launches["grouped_apply"], k1["high_spawn"],
-               max(v["max_abs_err"] for v in k1.values())),
+               "dliom_tpu/ops/pallas_apply.py:257", sum(k1_launches.values()), k1["high_spawn"],
+               max(v["max_abs_err"] for v in k1.values()), launches_by_path=k1_launches),
         record("affine_chain", "dliom_tpu_torch/csrc/affine_chain.cu",
                "dliom_tpu/imu/preintegration.py:102", sum(k2_launches.values()), k2[IMU_CAP],
                max(v["max_abs_err"] for v in k2.values()), launches_by_path=k2_launches),
@@ -1722,6 +2025,7 @@ def main():
                "dliom_tpu/ops/pallas_apply.py:215", sum(dense_launches.values()), k1d["dense"],
                max(v["max_abs_err"] for v in k1d.values()), launches_by_path=dense_launches),
     ]}))
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

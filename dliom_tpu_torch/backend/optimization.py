@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 from torch.func import vjp
 
+from dliom_tpu_torch.ops.segment import segment_plan, segment_sum
 from dliom_tpu_torch.transform.rigid import (
     quat_conjugate,
     quat_from_axis_angle,
@@ -200,9 +201,7 @@ def _landmark_residuals(data: PoseGraphData, nq, nt, d_extra) -> torch.Tensor:
 
 def _diag_add_(diag: torch.Tensor, index: torch.Tensor, cols: slice, values: torch.Tensor) -> None:
     """diag[index, cols] += values[:, None] in place, duplicates summed."""
-    w = torch.zeros(diag.shape[0], dtype=diag.dtype, device=diag.device)
-    w.index_add_(0, index.long(), values)
-    diag[:, cols] += w[:, None]
+    diag[:, cols] += segment_sum(values, index, diag.shape[0])[:, None]
 
 
 def solve(data: PoseGraphData, *, iterations: int = 10, cg_iterations: int = 64,
@@ -231,6 +230,7 @@ def solve(data: PoseGraphData, *, iterations: int = 10, cg_iterations: int = 64,
     blocks = tuple(bool(torch.any(v)) for v in (data.nn_valid, data.ff_valid, data.lm_valid))
     num_c = data.c_valid.shape[0]
     cs, cn = data.c_submap.long(), data.c_node.long()
+    by_submap, by_node = segment_plan(cs, s), segment_plan(cn, n)
     d = data
     for _ in range(iterations):
         # SPA rows: each touches one submap and one node, so J is two (C,
@@ -249,8 +249,8 @@ def solve(data: PoseGraphData, *, iterations: int = 10, cg_iterations: int = 64,
 
         def spa_jt(u):
             """J^T u of the SPA rows for row values u (C, 6)."""
-            return (zeros(s, 6).index_add_(0, cs, torch.einsum("cij,ci->cj", j_s, u)),
-                    zeros(n, 6).index_add_(0, cn, torch.einsum("cij,ci->cj", j_n, u)),
+            return (segment_sum(torch.einsum("cij,ci->cj", j_s, u), by_submap),
+                    segment_sum(torch.einsum("cij,ci->cj", j_n, u), by_node),
                     zeros(extra_dim))
 
         def hv(v):
@@ -276,8 +276,8 @@ def solve(data: PoseGraphData, *, iterations: int = 10, cg_iterations: int = 64,
         # Exact Jacobi preconditioner diag(J^T J): the SPA blocks' column
         # sums of squares; the node-node, fixed-frame and landmark rows add
         # closed-form weights^2.
-        diag_s = zeros(s, 6).index_add_(0, cs, (j_s ** 2).sum(1))
-        diag_n = zeros(n, 6).index_add_(0, cn, (j_n ** 2).sum(1))
+        diag_s = segment_sum((j_s ** 2).sum(1), by_submap)
+        diag_n = segment_sum((j_n ** 2).sum(1), by_node)
         tw2 = torch.where(d.nn_valid, d.nn_trans_weight ** 2, 0.0)
         rw2 = torch.where(d.nn_valid, d.nn_rot_weight ** 2, 0.0)
         for idx in (d.nn_first, d.nn_second):

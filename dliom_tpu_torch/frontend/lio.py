@@ -84,10 +84,9 @@ def make_lio_state(cfg: TrajectoryBuilderConfig, initial: pre.NavState, ba, bg) 
     )
 
 
-def _window_gravity(state: LioState, cfg: TrajectoryBuilderConfig):
+def _window_gravity(win: wo.WindowState, cfg: TrajectoryBuilderConfig):
     """Gravity direction from the optimizer window (EstimateGravity,
     :1106-1154); returns (direction_in_world, valid)."""
-    win = state.window
     w = win.window
     t0 = Rigid3(win.q[0], win.p[0])
     t0_inv = t0.inverse()
@@ -105,6 +104,35 @@ def _window_gravity(state: LioState, cfg: TrajectoryBuilderConfig):
     return g_world / torch.clamp(_norm(g_world), min=1e-9), ok
 
 
+def fuse_window(window: wo.WindowState, preint: pre.Preintegrated, predicted: pre.NavState,
+                pose_estimate: Rigid3, grav_dir, grav_ok, ba, bg, cfg: TrajectoryBuilderConfig):
+    """The window stage: push the scan's key, Gauss-Newton, the newest
+    state, and FailureDetection -> ResetParams (:896-913). Returns
+    (fused pose, (window, nav, ba, bg, failed))."""
+    g_norm = cfg.imu.gravity
+    win = wo.push_key(window, preint, predicted, pose_estimate,
+                      torch.zeros((), dtype=torch.bool, device=ba.device), grav_dir, grav_ok,
+                      cfg.imu, g_norm)
+    win = wo.optimize(win, cfg.imu, g_norm, iterations=cfg.gn_iterations)
+    nav2, ba2, bg2 = wo.latest_state(win)
+    failed = wo.failure_detected(win)
+    reset_win = wo.make_window(cfg.window_size, predicted, ba, bg, cfg.imu)
+    win = tree_where(failed, reset_win, win)
+    nav2 = tree_where(failed, predicted, nav2)
+    ba2 = torch.where(failed, ba, ba2)
+    bg2 = torch.where(failed, bg, bg2)
+    return nav2.pose, (win, nav2, ba2, bg2, failed)
+
+
+def imu_carry(imu_acc, imu_gyr, imu_mask, last_acc, last_gyr):
+    """The last valid IMU sample, the next scan's midpoint partner."""
+    n_imu = torch.sum(imu_mask, dtype=torch.int32)
+    last_idx = torch.clamp(n_imu - 1, min=0)
+    has_imu = n_imu > 0
+    return (torch.where(has_imu, _take(imu_acc, last_idx), last_acc),
+            torch.where(has_imu, _take(imu_gyr, last_idx), last_gyr))
+
+
 def lio_step(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig) -> Tuple[LioState, LioResult]:
     dev = inp.points.device
     noise = pre.noise_matrix(cfg.imu, dev)
@@ -118,44 +146,31 @@ def lio_step(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig) -
     rel = state.nav.pose.inverse().compose(predicted.pose)
 
     if cfg.enable_gravity_factor:
-        grav_dir, grav_ok = _window_gravity(state, cfg)
+        grav_dir, grav_ok = _window_gravity(state.window, cfg)
     else:
         grav_dir = torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32, device=dev)
         grav_ok = torch.zeros((), dtype=torch.bool, device=dev)
 
     def fuse(pose_estimate: Rigid3):
         with record_function("lio.window"):
-            win = wo.push_key(state.window, preint, predicted, pose_estimate,
-                              torch.zeros((), dtype=torch.bool, device=dev), grav_dir, grav_ok,
-                              cfg.imu, g_norm)
-            win = wo.optimize(win, cfg.imu, g_norm, iterations=cfg.gn_iterations)
-            nav2, ba2, bg2 = wo.latest_state(win)
-            failed = wo.failure_detected(win)
-            # FailureDetection -> ResetParams (:896-913)
-            reset_win = wo.make_window(cfg.window_size, predicted, state.ba, state.bg, cfg.imu)
-            win = tree_where(failed, reset_win, win)
-            nav2 = tree_where(failed, predicted, nav2)
-            ba2 = torch.where(failed, state.ba, ba2)
-            bg2 = torch.where(failed, state.bg, bg2)
-        return nav2.pose, (win, nav2, ba2, bg2, failed)
+            return fuse_window(state.window, preint, predicted, pose_estimate, grav_dir, grav_ok,
+                               state.ba, state.bg, cfg)
 
     scan = ScanInput(time=inp.time, points=inp.points, times=inp.times, mask=inp.mask,
                      relative_prediction=rel)
     new_frontend, (result, (win, nav2, ba2, bg2, failed)) = step(state.frontend, scan, cfg,
                                                                  fuse_fn=fuse)
 
-    # carry the last valid IMU sample as the next midpoint partner
-    n_imu = torch.sum(inp.imu_mask, dtype=torch.int32)
-    last_idx = torch.clamp(n_imu - 1, min=0)
-    has_imu = n_imu > 0
+    last_acc, last_gyr = imu_carry(inp.imu_acc, inp.imu_gyr, inp.imu_mask, state.last_acc,
+                                   state.last_gyr)
     new_state = LioState(
         frontend=new_frontend,
         window=win,
         nav=nav2,
         ba=ba2,
         bg=bg2,
-        last_acc=torch.where(has_imu, _take(inp.imu_acc, last_idx), state.last_acc),
-        last_gyr=torch.where(has_imu, _take(inp.imu_gyr, last_idx), state.last_gyr),
+        last_acc=last_acc,
+        last_gyr=last_gyr,
         failures=state.failures + failed.to(torch.int32),
     )
     return new_state, LioResult(scan=result, velocity=nav2.velocity, ba=ba2, bg=bg2,

@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from dliom_tpu_torch.ops.segment import segment_sum
 from dliom_tpu_torch.transform.rigid import (
     Rigid3,
     _cross,
@@ -94,9 +95,8 @@ def _normal_equations(blk: torch.Tensor, rhs: torch.Tensor,
     rb = (blk.transpose(1, 2) @ rhs[:, :, None])[..., 0]
     sl = torch.cat([3 * torch.arange(k, device=dev)[:, None] + torch.arange(6, device=dev),
                     (n - g_dim + torch.arange(g_dim, device=dev)).expand(k, g_dim)], dim=1)
-    big_a = torch.zeros(n * n, dtype=torch.float32, device=dev).index_add_(
-        0, (sl[:, :, None] * n + sl[:, None, :]).reshape(-1), ra.reshape(-1)).reshape(n, n)
-    big_b = torch.zeros(n, dtype=torch.float32, device=dev).index_add_(0, sl.reshape(-1), rb.reshape(-1))
+    big_a = segment_sum(ra.reshape(-1), (sl[:, :, None] * n + sl[:, None, :]).reshape(-1), n * n).reshape(n, n)
+    big_b = segment_sum(rb.reshape(-1), sl.reshape(-1), n)
     return big_a * 1000.0 + 1e-6 * torch.eye(n, dtype=torch.float32, device=dev), big_b * 1000.0
 
 

@@ -10,9 +10,11 @@ and composes them with the affine-chain kernel K2 (imu/affine_chain.py);
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.func import vmap
 
 from dliom_tpu_torch.common.config import ImuConfig
 from dliom_tpu_torch.imu.affine_chain import affine_chain
@@ -160,7 +162,22 @@ def _prefix_quat_product(steps: torch.Tensor) -> torch.Tensor:
 
 def integrate(pre: Preintegrated, dts, accs, gyrs, mask, noise) -> Preintegrated:
     """Batched integration, numerically equivalent to the sequential path.
-    `mask` must be a prefix mask (valid samples first)."""
+    `mask` must be a prefix mask (valid samples first). Over a leading lane
+    axis (B lanes: `pre`'s fields (B, ·), samples (B, M, ·)) the steps and
+    the close are vmapped and K2 composes all B chains in one call."""
+    if dts.dim() == 2:
+        f, q_noise, partial = vmap(functools.partial(_chain_inputs, noise=noise))(
+            pre, dts, accs, gyrs, mask)
+        f_total, q_total = affine_chain(f, q_noise)
+        return vmap(_chain_close)(pre, partial, f_total, q_total)
+    f, q_noise, partial = _chain_inputs(pre, dts, accs, gyrs, mask, noise)
+    f_total, q_total = affine_chain(f, q_noise)
+    return _chain_close(pre, partial, f_total, q_total)
+
+
+def _chain_inputs(pre: Preintegrated, dts, accs, gyrs, mask, noise):
+    """The rotation, velocity and position chains of one bridge, and its
+    (M, 15, 15) F and Q for K2 (masked samples as (I, 0))."""
     okf = mask.to(torch.float32)[:, None]
     dt = torch.where(mask, dts, 0.0)
     ba, bg = pre.ba, pre.bg
@@ -193,21 +210,27 @@ def integrate(pre: Preintegrated, dts, accs, gyrs, mask, noise) -> Preintegrated
     eye15 = torch.eye(15, dtype=torch.float32, device=f.device)
     f = torch.where(mask[:, None, None], f, eye15)
     q_noise = torch.where(mask[:, None, None], q_noise, 0.0)
-    f_total, q_total = affine_chain(f, q_noise)
-
     n_valid = torch.sum(mask, dtype=torch.int32)
     last = torch.clamp(n_valid - 1, min=0).reshape(1)
     has = n_valid > 0
-    return pre._replace(
+    partial = pre._replace(
         delta_p=p_final,
         delta_q=q_final,
         delta_v=v_final,
-        jacobian=f_total @ pre.jacobian,
-        covariance=f_total @ pre.covariance @ f_total.T + q_total,
         dt=pre.dt + torch.sum(dt),
         acc0=torch.where(has, accs.index_select(0, last)[0], pre.acc0),
         gyr0=torch.where(has, gyrs.index_select(0, last)[0], pre.gyr0),
         count=pre.count + n_valid,
+    )
+    return f, q_noise, partial
+
+
+def _chain_close(pre: Preintegrated, partial: Preintegrated, f_total, q_total) -> Preintegrated:
+    """`partial` with the jacobian and covariance carried through K2's
+    (A, P) of the bridge."""
+    return partial._replace(
+        jacobian=f_total @ pre.jacobian,
+        covariance=f_total @ pre.covariance @ f_total.T + q_total,
     )
 
 

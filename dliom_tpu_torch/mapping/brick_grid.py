@@ -103,19 +103,21 @@ class BrickBank(NamedTuple):
     pool: torch.Tensor  # (2 * num_pool_cells,) int16
     counts: torch.Tensor  # (2,) int32 allocated groups per slot
     group_of_slot: torch.Tensor  # (2 * num_pool_groups,) int32
-    dropped: torch.Tensor  # (1,) int32 running count of dropped groups
+    dropped: torch.Tensor  # (1,) int32 running count of dropped groups ((B,) batched, in [0])
     epochs: torch.Tensor  # (2,) int32 per-slot spawn epoch
 
 
-def make_brick_bank(spec: BrickGridSpec, device=None) -> BrickBank:
+def make_brick_bank(spec: BrickGridSpec, device=None, lanes: int = 1) -> BrickBank:
+    """An empty bank of two slots per lane."""
     i32 = dict(dtype=torch.int32, device=device)
+    slots = 2 * lanes
     return BrickBank(
-        directory=torch.full((2 * spec.num_dir_groups,), -1, **i32),
-        pool=torch.zeros(2 * spec.num_pool_cells, dtype=GRID_DTYPE, device=device),
-        counts=torch.zeros(2, **i32),
-        group_of_slot=torch.zeros(2 * spec.num_pool_groups, **i32),
-        dropped=torch.zeros(1, **i32),
-        epochs=torch.zeros(2, **i32),
+        directory=torch.full((slots * spec.num_dir_groups,), -1, **i32),
+        pool=torch.zeros(slots * spec.num_pool_cells, dtype=GRID_DTYPE, device=device),
+        counts=torch.zeros(slots, **i32),
+        group_of_slot=torch.zeros(slots * spec.num_pool_groups, **i32),
+        dropped=torch.zeros(lanes, **i32),
+        epochs=torch.zeros(slots, **i32),
     )
 
 
@@ -155,11 +157,13 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 def lookup_value_brick(bank: BrickBank, cells: torch.Tensor, spec: BrickGridSpec, slot) -> torch.Tensor:
     """Cell value at signed cell indices; 0 (unknown) when out of range or
-    in an unallocated group."""
+    in an unallocated group. `slot` is one bank slot, or a tensor of slots
+    that broadcasts against the cells' leading axes (one per lane)."""
     slot = torch.as_tensor(slot, dtype=torch.int32, device=cells.device)
     group, cig, ok = _split_cells(cells, spec)
     raw = bank.directory[(slot * spec.num_dir_groups + group).long()]
-    pg, cur = _decode_dir(raw, _take(bank.epochs, slot), spec)
+    epoch = _take(bank.epochs, slot) if slot.dim() == 0 else bank.epochs[slot.long()]
+    pg, cur = _decode_dir(raw, epoch, spec)
     addr = (
         slot.long() * spec.num_pool_cells
         + torch.clamp(pg, 0, spec.num_pool_groups - 1).long() * spec.cells_per_group
@@ -179,32 +183,44 @@ def interpolated_probability_brick(bank: BrickBank, points: torch.Tensor, spec: 
 
 def reset_slot(bank: BrickBank, spec: BrickGridSpec, slot, pending=True) -> BrickBank:
     """Recycle a slot for a new submap, gated arithmetically on `pending`.
-    Grouped path: bumps the slot's epoch through epoch_mask (invalidating
-    every entry of the old epoch) and clears `sweep_per_reset` rotating
-    directory entries so a wrapped epoch never false-validates a stale
-    entry; the pool's stale cells stay, unreachable until K1 zero-fills a
-    re-allocated group (`fresh`). Per-record path: the slot's directory
-    becomes -1 and its pool 0, written in place through (2, ·) views of
-    the banks with no host read."""
+    `slot` and `pending` are one slot and flag, or (L,) tensors: one
+    distinct slot per lane of a bank of 2L slots. Grouped path: bumps the
+    slot's epoch through epoch_mask (invalidating every entry of the old
+    epoch) and clears `sweep_per_reset` rotating directory entries so a
+    wrapped epoch never false-validates a stale entry; the pool's stale
+    cells stay, unreachable until K1 zero-fills a re-allocated group
+    (`fresh`). Per-record path: the slot's directory becomes -1 and its
+    pool 0, written in place through (slots, ·) views of the banks with no
+    host read."""
     dev = bank.counts.device
-    pending = torch.as_tensor(pending, device=dev)
+    num_slots = bank.counts.shape[0]
     slot = torch.as_tensor(slot, dtype=torch.int32, device=dev)
-    in_slot = torch.arange(2, dtype=torch.int32, device=dev) == slot
-    counts = torch.where(in_slot & pending, 0, bank.counts)
+    pending = torch.as_tensor(pending, device=dev).expand(slot.shape)
+    in_slot = torch.arange(num_slots, dtype=torch.int32, device=dev) == slot[..., None]
+    here = torch.any(in_slot & pending[..., None], dim=0) if slot.dim() else in_slot & pending
+    counts = torch.where(here, 0, bank.counts)
     if spec.apply_groups <= 0:
-        here = (in_slot & pending)[:, None]
-        bank.directory.view(2, spec.num_dir_groups).masked_fill_(here, -1)
-        bank.pool.view(2, spec.num_pool_cells).masked_fill_(here, 0)
+        bank.directory.view(num_slots, spec.num_dir_groups).masked_fill_(here[:, None], -1)
+        bank.pool.view(num_slots, spec.num_pool_cells).masked_fill_(here[:, None], 0)
         return bank._replace(counts=counts)
-    old_epoch = _take(bank.epochs, slot)
-    epochs = torch.where(in_slot & pending, (old_epoch + 1) & spec.epoch_mask, bank.epochs)
+    epochs = torch.where(here, (bank.epochs + 1) & spec.epoch_mask, bank.epochs)
     k = spec.sweep_per_reset
-    start = old_epoch * k
-    idx = (slot * spec.num_dir_groups
+    old_epoch = _take(bank.epochs, slot) if slot.dim() == 0 else bank.epochs[slot.long()]
+    start = (old_epoch * k)[..., None]
+    idx = (slot[..., None] * spec.num_dir_groups
            + torch.remainder(start + torch.arange(k, dtype=torch.int32, device=dev),
                              spec.num_dir_groups)).long()
-    bank.directory[idx] = torch.where(pending, -1, bank.directory[idx])
+    bank.directory[idx] = torch.where(pending[..., None], -1, bank.directory[idx])
     return bank._replace(counts=counts, epochs=epochs)
+
+
+def add_to_first(counter: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
+    """counter[0] + inc, the rest of `counter` unchanged: a bank's drop
+    counter is (lanes,) and aggregates in element 0 (the JAX package's
+    convention, which keeps the shape shardable)."""
+    if counter.shape[0] == 1:
+        return counter + inc
+    return torch.cat([counter[:1] + inc, counter[1:]])
 
 
 def _scatter_(target: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, keep: torch.Tensor) -> None:
@@ -297,6 +313,7 @@ def _insert_brick_slots(
     row_first[1:] = row_slot[1:] != row_slot[:-1]
     slot_base = torch.cummax(torch.where(row_first, incl - needs_i, 0), dim=0).values
     rank = (incl - needs_i) - slot_base
+    # rows x S compares: cheap at the 16 slots of a batched step at B = 8
     counts_sel = torch.sum(
         torch.where(row_slot[:, None] == s_ar[None, :], bank.counts[None, :], 0),
         dim=1, dtype=torch.int32,
@@ -317,7 +334,7 @@ def _insert_brick_slots(
     head[1:] = s_g[1:] != s_g[:-1]
     heads_total = torch.sum(head & s_valid, dtype=torch.int32)
     kept = torch.sum(pool_row >= 0, dtype=torch.int32)
-    dropped = bank.dropped + (heads_total - kept)
+    dropped = add_to_first(bank.dropped, heads_total - kept)
     keys = (s_sec ^ 1).contiguous()  # kind bit flips to K1's is_hit convention
     apply_grouped_rows(
         bank.pool, rows_pool.contiguous(), starts.contiguous(), ends.contiguous(), keys,
@@ -383,7 +400,7 @@ def _insert_records(bank: BrickBank, s_g, s_sec, s_valid, spec: BrickGridSpec, h
     updated = torch.where(s_miss == 1, pv.apply_odds(current, miss_odds),
                           pv.apply_odds(current, hit_odds))
     _scatter_(bank.pool, addr, updated.to(GRID_DTYPE), write)
-    dropped = bank.dropped + torch.sum(needs & ~fits, dtype=torch.int32)
+    dropped = add_to_first(bank.dropped, torch.sum(needs & ~fits, dtype=torch.int32))
     return bank._replace(counts=counts, dropped=dropped)
 
 

@@ -25,6 +25,7 @@ from dliom_tpu_torch.mapping.brick_grid import (
     BrickGridSpec,
     _insert_brick_slots,
     _take,
+    add_to_first,
     make_brick_bank,
     reset_slot,
 )
@@ -45,9 +46,9 @@ class ActiveSubmaps(NamedTuple):
     pending_rotation: torch.Tensor  # (4,)
     pending_translation: torch.Tensor  # (3,)
     high_brick: Optional[BrickBank] = None
-    lane: torch.Tensor = None  # () int32, always 0 (single sequence)
+    lane: torch.Tensor = None  # () int32: 0, or the lane of a batched run (parallel/batch.py)
     low_brick: Optional[BrickBank] = None
-    dense_dropped: torch.Tensor = None  # (1,) int32
+    dense_dropped: torch.Tensor = None  # (1,) int32 ((B,) batched, aggregated in [0])
 
 
 class InsertionBatch(NamedTuple):
@@ -197,7 +198,7 @@ def write_insertion_batch(high_values, low_values, high_brick, batch: InsertionB
     out = dict(high_values=high_values, high_brick=high_brick, low_values=low_values,
                low_brick=low_brick)
     if dense_dropped is not None:
-        out["dense_dropped"] = dense_dropped + sum(drops) if drops else dense_dropped
+        out["dense_dropped"] = add_to_first(dense_dropped, sum(drops)) if drops else dense_dropped
     return out
 
 
@@ -214,30 +215,39 @@ def insert_range_data_into_submaps(state: ActiveSubmaps, origin_in_local, return
 
 
 def _clear_dense_slot_(values: torch.Tensor, spec: GridSpec, slot: torch.Tensor,
-                       pending: torch.Tensor) -> None:
-    """Zero slot `slot` of a flat dense bank in place when `pending`, with
-    no host read (the padding group is never touched)."""
-    here = (torch.arange(2, dtype=torch.int32, device=values.device) == slot) & pending
-    values[: 2 * spec.num_cells].view(2, spec.num_cells).masked_fill_(here[:, None], 0)
+                       pending: torch.Tensor, num_slots: int = 2) -> None:
+    """Zero slot `slot` of a flat dense bank of `num_slots` slots in place
+    when `pending`, with no host read (the padding group is never
+    touched). `slot` and `pending` may be (L,): one distinct slot per lane."""
+    ar = torch.arange(num_slots, dtype=torch.int32, device=values.device)
+    here = (ar == slot[..., None]) & pending[..., None]
+    if slot.dim():
+        here = torch.any(here, dim=0)
+    values[: num_slots * spec.num_cells].view(num_slots, spec.num_cells).masked_fill_(here[:, None], 0)
 
 
-def apply_pending_spawn(state: ActiveSubmaps, cfg: SubmapsConfig) -> ActiveSubmaps:
+def apply_pending_spawn(state: ActiveSubmaps, cfg: SubmapsConfig,
+                        defer_bank_clears: bool = False) -> ActiveSubmaps:
     """Execute a deferred AddSubmap (submap_3d.cc:318-326): recycle the
-    finished submap's slot for the new one, gated on `pending_spawn`."""
+    finished submap's slot for the new one, gated on `pending_spawn`. With
+    `defer_bank_clears` only the per-slot state changes and the banks are
+    left alone: the batched run clears all lanes' slots at once
+    (parallel/batch.py::clear_spawned_slots)."""
     hi, lo = grid_specs(cfg)
     s = state
     pending = s.pending_spawn
     new_slot = torch.remainder(s.num_created, 2)
     here = (torch.arange(2, dtype=torch.int32, device=new_slot.device) == new_slot) & pending
     high_brick, low_brick = s.high_brick, s.low_brick
-    if cfg.use_brick_grid:
-        high_brick = reset_slot(s.high_brick, brick_spec(cfg), new_slot, pending)
-    else:
-        _clear_dense_slot_(s.high_values, hi, new_slot, pending)
-    if cfg.use_brick_grid_low:
-        low_brick = reset_slot(s.low_brick, brick_spec_low(cfg), new_slot, pending)
-    else:
-        _clear_dense_slot_(s.low_values, lo, new_slot, pending)
+    if not defer_bank_clears:
+        if cfg.use_brick_grid:
+            high_brick = reset_slot(s.high_brick, brick_spec(cfg), new_slot, pending)
+        else:
+            _clear_dense_slot_(s.high_values, hi, new_slot, pending)
+        if cfg.use_brick_grid_low:
+            low_brick = reset_slot(s.low_brick, brick_spec_low(cfg), new_slot, pending)
+        else:
+            _clear_dense_slot_(s.low_values, lo, new_slot, pending)
     return s._replace(
         high_brick=high_brick,
         low_brick=low_brick,

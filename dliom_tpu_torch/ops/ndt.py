@@ -3,15 +3,13 @@ dliom_tpu/ops/ndt.py; reference MatchByNDT, local_trajectory_builder_3d.cc:
 969-1008, which uses PCL's NDT).
 
 `build_field` voxelizes the target scan into per-voxel Gaussians: one
-stable sort of the voxel keys, segment sums with `index_add_`, and a dense
+stable sort of the voxel keys, segment sums (`ops/segment.py`: a fixed
+order of addition, so the card gives the same bits on every run), and a dense
 voxel -> slot table so the per-point lookup is a gather. `match` runs a
 fixed 20-iteration trust-region LM of the point-to-distribution residuals
 with masked accepts and no host read. Its Jacobian is `torch.func.jacfwd`
 (forward mode, as the JAX package's `jax.linearize`): the initializer runs
 on the ingest thread, the one thread that may use forward-mode AD.
-
-On the card the segment sums add in atomic order, so a field built there
-differs from the CPU's in the last bits of the means and whitening.
 """
 
 from __future__ import annotations
@@ -22,6 +20,7 @@ import torch
 from torch.func import jacfwd
 
 from dliom_tpu_torch.mapping.grid import GridSpec, cell_index, linear_index
+from dliom_tpu_torch.ops.segment import segment_plan, segment_sum
 from dliom_tpu_torch.transform.rigid import Rigid3, _norm, quat_from_axis_angle, quat_multiply, quat_normalize
 
 
@@ -32,10 +31,6 @@ class NdtField(NamedTuple):
     sqrt_inv_cov: torch.Tensor  # (K, 3, 3) whitening transforms
     valid: torch.Tensor  # (K,)
     slot_table: torch.Tensor  # (num_cells,) int32 -> slot, or K
-
-
-def _segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros((n,) + x.shape[1:], dtype=x.dtype, device=x.device).index_add_(0, seg, x)
 
 
 def _whitening(cov: torch.Tensor) -> torch.Tensor:
@@ -62,18 +57,17 @@ def build_field(points: torch.Tensor, mask: torch.Tensor, spec: GridSpec, max_vo
     # slot per sorted element: the rank of its voxel's head
     slot_of_elem = torch.cumsum(first, 0, dtype=torch.int32) - 1
     slot_of_elem = torch.clamp(torch.where(inside, slot_of_elem, max_voxels), max=max_voxels)
-    seg = slot_of_elem.long()
-    n_seg = max_voxels + 1
+    seg = segment_plan(slot_of_elem, max_voxels + 1)
 
     w = inside.to(torch.float32)
-    counts = _segment_sum(w, seg, n_seg)[:max_voxels]
+    counts = segment_sum(w, seg)[:max_voxels]
     # moments about each point's cell center: absolute f32 coordinates would
     # cancel catastrophically in E[pp^T] - mu mu^T far from the origin
     s_centers = cells[order].to(torch.float32) * spec.resolution
     s_rel = s_pts - s_centers
-    sums = _segment_sum(s_rel * w[:, None], seg, n_seg)[:max_voxels]
-    center_sums = _segment_sum(s_centers * w[:, None], seg, n_seg)[:max_voxels]
-    sq = _segment_sum(s_rel[:, :, None] * s_rel[:, None, :] * w[:, None, None], seg, n_seg)[:max_voxels]
+    sums = segment_sum(s_rel * w[:, None], seg)[:max_voxels]
+    center_sums = segment_sum(s_centers * w[:, None], seg)[:max_voxels]
+    sq = segment_sum(s_rel[:, :, None] * s_rel[:, None, :] * w[:, None, None], seg)[:max_voxels]
 
     n = torch.clamp(counts, min=1.0)
     rel_means = sums / n[:, None]

@@ -5,8 +5,11 @@ mapping/internal/3d/scan_matching/rotational_scan_matcher.cc).
 Points are cut into 0.2 m z-slices and sorted by angle about their slice's
 xy centroid; each consecutive pair within a slice adds the orthogonality
 of its xy delta to the centroid ray into the bucket of the delta's angle.
-Segment sums use `index_add_`: the JAX package's one-hot matmuls work
-around TPU scatters, which a GPU does not need.
+The slice and bucket sums are `ops/segment.py::segment_sum`, a sorted
+segment reduction: it adds in a fixed order, so a node's histogram has the
+same bits on every run on the card (the JAX package's one-hot matmuls are
+deterministic too; `index_add_` on the card is not). B lanes' clouds go
+through in one pass, each lane's slices and buckets segments of their own.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from dliom_tpu_torch.ops.segment import segment_sum
+
 MIN_DISTANCE = 0.2
 MAX_DISTANCE = 0.9
 SLICE_HEIGHT = 0.2
@@ -23,42 +28,50 @@ _NUM_SLICES = 1024  # z in [-102.4, 102.4) m
 
 
 def compute_histogram(points: torch.Tensor, mask: torch.Tensor, num_buckets: int = 120) -> torch.Tensor:
-    """Histogram of a gravity-aligned cloud; (num_buckets,) float32."""
+    """Histogram of a gravity-aligned cloud (N, 3): (num_buckets,) float32;
+    of B lanes' clouds (B, N, 3): (B, num_buckets)."""
+    batched = points.dim() == 3
+    if not batched:
+        points, mask = points[None], mask[None]
+    b, n = mask.shape
     dev = points.device
-    z_slice = torch.round(points[:, 2] / SLICE_HEIGHT).to(torch.int32)
+    lane = torch.arange(b, device=dev)[:, None]
+    z_slice = torch.round(points[..., 2] / SLICE_HEIGHT).to(torch.int32)
     slice_id = torch.clamp(z_slice + _NUM_SLICES // 2, 0, _NUM_SLICES - 1)
     seg = torch.where(mask, slice_id, _NUM_SLICES)  # sentinel row for invalid points
 
     ones = mask.to(torch.float32)
-    sums = torch.zeros(_NUM_SLICES + 1, 3, dtype=torch.float32, device=dev)
-    sums.index_add_(0, seg.long(), torch.cat([points[:, :2] * ones[:, None], ones[:, None]], dim=1))
-    centroids = sums[:, :2] / torch.clamp(sums[:, 2], min=1.0)[:, None]
-    centroid = torch.where(mask[:, None], centroids[seg.long()], 0.0)
+    rows = _NUM_SLICES + 1
+    sums = segment_sum(torch.cat([points[..., :2] * ones[..., None], ones[..., None]], dim=-1).reshape(b * n, 3),
+                       (seg + lane * rows).reshape(-1), b * rows).reshape(b, rows, 3)
+    centroids = sums[..., :2] / torch.clamp(sums[..., 2], min=1.0)[..., None]
+    centroid = torch.where(mask[..., None], _rows(centroids, seg), 0.0)
 
-    offs = points[:, :2] - centroid
+    offs = points[..., :2] - centroid
     far_enough = torch.sqrt(torch.sum(offs * offs, dim=-1)) >= MIN_DISTANCE
-    angle_about_centroid = torch.atan2(offs[:, 1], offs[:, 0])
+    angle_about_centroid = torch.atan2(offs[..., 1], offs[..., 0])
 
-    # one int32 key: slice in the high bits, angle quantized to 20 bits
+    # one int32 key: slice in the high bits, angle quantized to 20 bits;
+    # one sort of every lane's row
     valid = mask & far_enough
     aq = torch.clamp(
         ((angle_about_centroid + math.pi) * ((1 << 20) / (2.0 * math.pi))).to(torch.int32),
         0, (1 << 20) - 1,
     )
     key = torch.where(valid, (seg << 20) | aq, (_NUM_SLICES + 1) << 20)
-    skey, order = torch.sort(key, stable=True)
+    skey, order = torch.sort(key, dim=-1, stable=True)
     sseg = skey >> 20
     svalid = sseg < _NUM_SLICES
-    sp = points[order, :2]
-    sc = centroid[order]
+    sp = _rows(points[..., :2], order)
+    sc = _rows(centroid, order)
 
-    delta = sp[1:] - sp[:-1]
-    direction = sp[1:] - sc[1:]
+    delta = sp[:, 1:] - sp[:, :-1]
+    direction = sp[:, 1:] - sc[:, 1:]
     dist = torch.sqrt(torch.sum(delta * delta, dim=-1))
     dirn = torch.sqrt(torch.sum(direction * direction, dim=-1))
-    same_slice = (sseg[1:] == sseg[:-1]) & svalid[1:] & svalid[:-1]
+    same_slice = (sseg[:, 1:] == sseg[:, :-1]) & svalid[:, 1:] & svalid[:, :-1]
     keep = same_slice & (dist >= MIN_DISTANCE) & (dist <= MAX_DISTANCE)
-    angle = torch.atan2(delta[:, 1], delta[:, 0])
+    angle = torch.atan2(delta[..., 1], delta[..., 0])
     ortho = 1.0 - torch.abs(
         torch.sum(delta * direction, dim=-1) / torch.clamp(dist * dirn, min=1e-12))
     value = torch.clamp(ortho, min=0.0)
@@ -67,9 +80,15 @@ def compute_histogram(points: torch.Tensor, mask: torch.Tensor, num_buckets: int
     bucket = torch.clamp(
         torch.round(num_buckets * (a / math.pi) - 0.5).to(torch.int32), 0, num_buckets - 1)
     bucket = torch.where(keep, bucket, num_buckets)
-    hist = torch.zeros(num_buckets + 1, dtype=torch.float32, device=dev)
-    hist.index_add_(0, bucket.long(), torch.where(keep, value, 0.0))
-    return hist[:num_buckets]
+    hist = segment_sum(torch.where(keep, value, 0.0).reshape(-1),
+                       (bucket + lane * (num_buckets + 1)).reshape(-1), b * (num_buckets + 1))
+    hist = hist.reshape(b, num_buckets + 1)[:, :num_buckets]
+    return hist if batched else hist[0]
+
+
+def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b, i]] for x (B, K, C) and idx (B, N)."""
+    return torch.gather(x, 1, idx.long()[..., None].expand(idx.shape + x.shape[2:]))
 
 
 def rotate_histogram(histogram: torch.Tensor, angle) -> torch.Tensor:

@@ -11,9 +11,14 @@ forward pass carrying all 6 tangents; the primal comes back with it.
 
 The trust-region LM (Ceres-style rho acceptance, non-monotonic reference
 cost, best-pose tracking) is one Python loop over a batch of lanes,
-`_lm_iterate`. `match` runs it at one lane; with function_tolerance > 0 it
-reads `converged` on the host after each iteration and stops, so the
-returned `iterations` equals the JAX while-loop's.
+`_lm_iterate`. `match` runs it at one lane, or at B lanes (the batched
+frontend, parallel/batch.py: one pose, cloud and bank slot per lane, the
+banks shared); with function_tolerance > 0 it reads `converged` on the
+host after each iteration and stops once every lane has converged,
+freezing each converged lane meanwhile, so each lane's `iterations` equals
+the JAX while loop's (under vmap, for B lanes). The B lanes' Jacobians
+come from one forward pass: every lane moves by the same 6 tangents, and a
+lane's residuals depend on its own pose only.
 
 `match_batch` refines B poses at once (the loop-closure refinement, which
 the JAX package vmaps): all `max_iterations` steps run with each lane
@@ -54,21 +59,23 @@ class ScanMatcherResult(NamedTuple):
 
 def _residuals(pose: Rigid3, clouds, grids, specs, weights, target_translation,
                target_rotation, translation_weight, rotation_weight, bases) -> torch.Tensor:
+    """(M,) residuals of one lane, or (B, M) of B lanes: poses (B, ·),
+    clouds (B, N, ·) and bases (B, 1, 1)."""
     parts = []
     for (points, mask), values, spec, w, base in zip(clouds, grids, specs, weights, bases):
-        n = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
-        world = pose.apply(points)
+        n = torch.clamp(torch.sum(mask.to(torch.float32), dim=-1), min=1.0)
+        world = Rigid3(pose.rotation[..., None, :], pose.translation[..., None, :]).apply(points)
         if isinstance(values, BrickBank):
             prob = interpolated_probability_brick(values, world, spec, base)
         else:
             prob = interpolated_probability(values, world, spec, base)
-        r = (w / torch.sqrt(n)) * (1.0 - prob)
+        r = (w / torch.sqrt(n))[..., None] * (1.0 - prob)
         parts.append(torch.where(mask, r, 0.0))
     parts.append(translation_weight * (pose.translation - target_translation))
     dq = quat_multiply(quat_conjugate(target_rotation), pose.rotation)
-    dq = torch.where(dq[0] < 0.0, -dq, dq)
-    parts.append(rotation_weight * dq[1:4])
-    return torch.cat(parts)
+    dq = torch.where(dq[..., 0:1] < 0.0, -dq, dq)
+    parts.append(rotation_weight * dq[..., 1:4])
+    return torch.cat(parts, dim=-1)
 
 
 def _apply_delta(pose: Rigid3, delta: torch.Tensor, only_yaw: bool) -> Rigid3:
@@ -107,11 +114,16 @@ def match(
 ) -> ScanMatcherResult:
     """Refine `initial_pose` so the clouds (tracking frame) match the grids
     (submap frame); CeresScanMatcher3D::Match. `grid_bases`: per grid, the
-    bank slot (brick grids) or flat offset (dense grids)."""
+    bank slot (brick grids) or flat offset (dense grids). For B lanes the
+    pose is (B, ·), the clouds (B, N, ·), each base a (B,) tensor, and the
+    result's fields carry the lane axis."""
+    batched = initial_pose.rotation.dim() == 2
     if target_translation is None:
         target_translation = initial_pose.translation
     if grid_bases is None:
         grid_bases = [0] * len(grids)
+    if batched:
+        grid_bases = [torch.as_tensor(b).reshape(-1, 1, 1) for b in grid_bases]
     target_rotation = initial_pose.rotation
     dev = initial_pose.translation.device
     zero = torch.zeros(4 if only_optimize_yaw else 6, dtype=torch.float32, device=dev)
@@ -124,7 +136,7 @@ def match(
         )
 
     def r_and_jac(pose):
-        """Residual and (M, ndelta) Jacobian from one forward-mode pass."""
+        """Residual and ((B,) M, ndelta) Jacobian from one forward-mode pass."""
         jac, r = jacfwd(lambda d: (residual_at(d, pose),) * 2, has_aux=True)(zero)
         return r, jac
 
@@ -134,10 +146,15 @@ def match(
         return r[None], jac[None]
 
     r0, jac0 = r_and_jac(initial_pose)
-    initial_cost = torch.sum(r0 * r0)
-    carry, iterations = _lm_iterate(
-        _lanes(lambda x: x[None], _initial_carry(initial_pose, r0, jac0, initial_cost)), lane,
-        only_optimize_yaw, max_iterations, function_tolerance, host_exit=True)
+    initial_cost = torch.sum(r0 * r0, dim=-1)
+    carry = _initial_carry(initial_pose, r0, jac0, initial_cost)
+    if batched:
+        carry, iterations = _lm_iterate(carry, r_and_jac, only_optimize_yaw, max_iterations,
+                                        function_tolerance, host_exit=True)
+        return ScanMatcherResult(pose=carry[6], cost=carry[7], initial_cost=initial_cost,
+                                 iterations=iterations)
+    carry, iterations = _lm_iterate(_lanes(lambda x: x[None], carry), lane, only_optimize_yaw,
+                                    max_iterations, function_tolerance, host_exit=True)
     best = carry[6]
     return ScanMatcherResult(pose=Rigid3(best.rotation[0], best.translation[0]), cost=carry[7][0],
                              initial_cost=initial_cost, iterations=iterations[0])
@@ -160,11 +177,12 @@ def _lm_iterate(carry, r_and_jac, only_yaw: bool, max_iterations: int,
     carry of `_initial_carry`; `r_and_jac(poses)` gives the (B, M)
     residuals and (B, M, ndelta) Jacobians. Ceres-style rho acceptance,
     non-monotonic reference cost, best-pose tracking. With function_tolerance
-    > 0 a lane stops once it has converged: `host_exit` reads that on the
-    host after each iteration and stops the loop when every lane has (the
-    JAX while loop's trip count); otherwise all `max_iterations` run with
-    converged lanes frozen (the JAX while loop under vmap, no host read).
-    Returns (carry, iterations (B,) int32)."""
+    > 0 a lane stops once it has converged and is frozen from then on (the
+    JAX while loop under vmap): `host_exit` reads that on the host after
+    each iteration and stops the loop when every lane has (the JAX while
+    loop's trip count, the most any lane needs); otherwise all
+    `max_iterations` run, with no host read. Returns (carry, iterations
+    (B,) int32)."""
     b = carry[3].shape[0]
     dev = carry[3].device
     done = torch.zeros(b, dtype=torch.bool, device=dev)
@@ -202,8 +220,8 @@ def _lm_iterate(carry, r_and_jac, only_yaw: bool, max_iterations: int,
                       torch.where(b1, cand.translation, best_pose.translation)),
                torch.where(is_best, new_cost, best_cost))
         live = ~done
-        if host_exit:
-            carry = new  # the loop stops before a lane could be frozen
+        if host_exit and b == 1:
+            carry = new  # the loop stops before its one lane could be frozen
         else:
             carry = _lanes(lambda n, o: torch.where(
                 live.reshape((-1,) + (1,) * (n.dim() - 1)), n, o), new, carry)

@@ -6,7 +6,10 @@ false). This file imports no jax, so it runs on a CUDA host without JAX:
 
 (`--noconftest`: tests/conftest.py configures JAX for the rest of the suite.)
 K1 must be bit-identical; K2 agrees to rtol 1e-5 / atol 1e-6, the
-tolerance of the CPU parity tests.
+tolerance of the CPU parity tests. The float segment sums
+(ops/segment.py) give the same bits on every run on the card, at each of
+their sites, and the CPU's bits; the batched step (parallel/batch.py)
+launches K1 once per brick grid and K2 once per step, whatever B is.
 """
 
 import numpy as np
@@ -118,7 +121,7 @@ def test_brick_records_insert_cuda_matches_cpu(cuda_device):
         assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
 
 
-@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("batch", [1, 2, 4, 8])
 @pytest.mark.parametrize("m", [1, 7, 32, 48, 64, 200])
 def test_affine_chain_scan_lengths(cuda_device, m, batch):
     """The scan at chain lengths below, at and above one sample per warp,
@@ -273,3 +276,166 @@ def test_map_builder_defaults_to_the_card(cuda_device):
 
     builder = MapBuilder(load_config("basic"))
     assert builder.device.type == "cuda" and builder.pose_graph.device.type == "cuda"
+
+
+def test_brick_insert_16_slots_cuda_matches_cpu(cuda_device):
+    """K1's brick entry over the 16 slots of a batched step at B = 8, with
+    8 x the capacity, on the card against the CPU run, where K1 runs plain."""
+    spec = TB.BrickGridSpec(resolution=0.1, dir_extent=16, max_bricks=768, apply_groups=8 * 128)
+    rng = np.random.default_rng(4)
+    lanes = 8
+    kw = dict(spec=spec, hit_probability=0.55, miss_probability=0.49, num_free_space_voxels=2)
+    cpu = TB.make_brick_bank(spec, lanes=lanes)
+    gpu = TB.make_brick_bank(spec, cuda_device, lanes=lanes)
+    hits = torch.from_numpy(rng.normal(0, 1.5, (2 * lanes, 512, 3)).astype(np.float32))
+    masks = torch.from_numpy(rng.random((2 * lanes, 512)) < 0.9)
+    origins = torch.from_numpy(rng.normal(0, 0.3, (2 * lanes, 3)).astype(np.float32))
+    for r in range(3):
+        launches = K1.LAUNCHES
+        cpu = TB._insert_brick_slots(cpu, origins, hits, masks, **kw)
+        gpu = TB._insert_brick_slots(gpu, origins.to(cuda_device), hits.to(cuda_device),
+                                     masks.to(cuda_device), **kw)
+        assert K1.LAUNCHES == launches + 1
+        slots = torch.arange(lanes, dtype=torch.int32) * 2 + r % 2
+        pending = torch.arange(lanes) % 2 == r % 2
+        cpu = TB.reset_slot(cpu, spec, slots, pending)
+        gpu = TB.reset_slot(gpu, spec, slots.to(cuda_device), pending.to(cuda_device))
+        hits = hits + 0.2
+    for f in TB.BrickBank._fields:
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    assert int(cpu.counts.sum()) > 0 and int(cpu.epochs.sum()) > 0
+
+
+def _twice(fn, *args):
+    """fn(*args) twice on the card, flattened to tensors."""
+    outs = []
+    for _ in range(2):
+        out = fn(*args)
+        torch.cuda.synchronize()
+        outs.append([x.cpu() for x in torch.utils._pytree.tree_leaves(out) if isinstance(x, torch.Tensor)])
+    return outs
+
+
+@pytest.mark.parametrize("shape", [(), (3,), (3, 3)])
+def test_segment_sum_deterministic(cuda_device, shape):
+    """Many values into few segments, twice on the card: equal bits, and
+    the CPU's bits (the same order of addition)."""
+    from dliom_tpu_torch.ops.segment import segment_sum
+
+    rng = np.random.default_rng(5)
+    values = torch.from_numpy((rng.normal(size=(200000,) + shape) * 100).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(-5, 130, 200000))
+    a, b = _twice(segment_sum, values.to(cuda_device), ids.to(cuda_device), 121)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(a[0], segment_sum(values, ids, 121))
+
+
+def test_histogram_deterministic(cuda_device):
+    """compute_histogram (slice centroids and buckets), one lane and a
+    batch of lanes, twice on the card: equal bits, and the CPU's."""
+    from dliom_tpu_torch.ops.rotational_histogram import compute_histogram
+
+    rng = np.random.default_rng(6)
+    pts = torch.from_numpy(rng.normal(0, 8.0, (4, 8192, 3)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((4, 8192)) < 0.95)
+    for p, m in ((pts[0], mask[0]), (pts, mask)):
+        a, b = _twice(compute_histogram, p.to(cuda_device), m.to(cuda_device))
+        assert torch.equal(a[0], b[0])
+        torch.testing.assert_close(a[0], compute_histogram(p, m), rtol=1e-5, atol=1e-5)
+    one = compute_histogram(pts[1].to(cuda_device), mask[1].to(cuda_device))
+    assert torch.equal(compute_histogram(pts.to(cuda_device), mask.to(cuda_device))[1], one)
+
+
+def test_ndt_field_deterministic(cuda_device):
+    from dliom_tpu_torch.mapping.grid import GridSpec
+    from dliom_tpu_torch.ops.ndt import build_field
+
+    rng = np.random.default_rng(7)
+    pts = torch.from_numpy(rng.normal(0, 5.0, (16384, 3)).astype(np.float32)).to(cuda_device)
+    mask = torch.ones(16384, dtype=torch.bool, device=cuda_device)
+    a, b = _twice(build_field, pts, mask, GridSpec(1.0, 64))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_initialization_normal_equations_deterministic(cuda_device):
+    from dliom_tpu_torch.imu.initialization import _normal_equations
+
+    rng = np.random.default_rng(8)
+    blk = torch.from_numpy(rng.normal(size=(9, 6, 9)).astype(np.float32)).to(cuda_device)
+    rhs = torch.from_numpy(rng.normal(size=(9, 6)).astype(np.float32)).to(cuda_device)
+    m = torch.ones(9, device=cuda_device)
+    a, b = _twice(_normal_equations, blk, rhs, m)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_spa_solve_deterministic(cuda_device):
+    """The SPA's segment sums (J^T u per submap and node, the Jacobi
+    diagonal, fixed-frame weights): the solve twice on the card, equal bits."""
+    from dliom_tpu_torch.backend import optimization as opt
+
+    rng = np.random.default_rng(9)
+    d = opt.make_pose_graph_data(8, 64, 512, device=cuda_device)
+    c = 400
+    sub = torch.from_numpy(rng.integers(0, 8, c).astype(np.int32))
+    node = torch.from_numpy(rng.integers(0, 64, c).astype(np.int32))
+    st = torch.from_numpy(rng.normal(0, 3.0, (8, 3)).astype(np.float32))
+    nt = torch.from_numpy(rng.normal(0, 3.0, (64, 3)).astype(np.float32))
+    rel = nt[node.long()] - st[sub.long()] + torch.from_numpy(rng.normal(0, 0.05, (c, 3)).astype(np.float32))
+
+    def put(x, v):
+        x = x.clone()
+        x[: v.shape[0]] = v.to(x.device)
+        return x
+
+    d = d._replace(
+        submap_t=st.to(cuda_device) + 0.1, submap_valid=torch.ones(8, dtype=torch.bool, device=cuda_device),
+        node_t=nt.to(cuda_device) - 0.1, node_valid=torch.ones(64, dtype=torch.bool, device=cuda_device),
+        c_submap=put(d.c_submap, sub), c_node=put(d.c_node, node), c_t=put(d.c_t, rel),
+        c_trans_weight=put(d.c_trans_weight, torch.ones(c)), c_rot_weight=put(d.c_rot_weight, torch.ones(c)),
+        c_valid=put(d.c_valid, torch.ones(c, dtype=torch.bool)),
+        ff_node=put(d.ff_node, torch.arange(8, dtype=torch.int32)), ff_t=put(d.ff_t, nt[:8]),
+        ff_weight=put(d.ff_weight, torch.ones(8)), ff_valid=put(d.ff_valid, torch.ones(8, dtype=torch.bool)))
+    a, b = _twice(lambda x: opt.solve(x, iterations=3, cg_iterations=16), d)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_batched_step_launches(cuda_device):
+    """One batched LIO step at B = 1 and B = 4: one K2 call and one K1 call
+    per brick grid, whatever B is; lane 0 of B = 4 takes the B = 1 pose."""
+    from dliom_tpu_torch.frontend.lio import LioScanInput
+    from dliom_tpu_torch.io.synthetic import SyntheticWorld, corkscrew_trajectory
+    from dliom_tpu_torch.parallel.batch import make_batched_lio_state, make_batched_lio_step
+    from dliom_tpu_torch.sensor.types import pad_point_cloud
+
+    cfg = load_config("basic", {"trajectory_builder": {
+        "scan_period": 0.1, "voxel_filter_size": 0.3, "enable_gravity_factor": False,
+        "submaps": {"high_resolution": 0.2, "low_resolution": 0.5, "num_range_data": 2,
+                    "use_brick_grid": True, "brick_dir_extent": 16, "brick_max_bricks": 4096,
+                    "brick_apply_groups": 2048, "use_brick_grid_low": True, "low_brick_dir_extent": 8,
+                    "low_brick_max_bricks": 512, "low_brick_apply_groups": 1024,
+                    "low_brick_apply_group_bricks": 8},
+        "max_filtered_points": 1024, "max_high_res_points": 256, "max_low_res_points": 256,
+        "max_imu_per_scan": 16, "window_size": 3, "gn_iterations": 2}}).trajectory_builder
+    world = SyntheticWorld.create(num_beams=8, num_azimuths=200)
+    cloud = pad_point_cloud(*world.cast_scan(corkscrew_trajectory()[3][1]), 2048)
+    poses = {}
+    for lanes in (1, 4):
+        def stack(x, dtype=None):
+            return torch.from_numpy(np.stack([np.asarray(x)] * lanes)).to(cuda_device, dtype)
+
+        inp = LioScanInput(
+            time=torch.full((lanes,), 0.1, device=cuda_device), points=stack(cloud.points),
+            times=stack(cloud.times), mask=stack(cloud.mask),
+            imu_dts=torch.full((lanes, 16), 0.00625, device=cuda_device),
+            imu_acc=torch.tensor([0.0, 0.0, 9.80511], device=cuda_device).repeat(lanes, 16, 1),
+            imu_gyr=torch.zeros(lanes, 16, 3, device=cuda_device),
+            imu_mask=torch.ones(lanes, 16, dtype=torch.bool, device=cuda_device))
+        state = make_batched_lio_state(cfg, lanes, cuda_device)
+        step = make_batched_lio_step(cfg, lanes)
+        k1, k2 = K1.LAUNCHES, K2.LAUNCHES
+        for _ in range(2):
+            state, res = step(state, inp)
+        torch.cuda.synchronize()
+        assert (K1.LAUNCHES - k1, K2.LAUNCHES - k2) == (4, 2)
+        poses[lanes] = res.scan.local_pose.translation.cpu()
+    torch.testing.assert_close(poses[4][0], poses[1][0], atol=2e-4, rtol=0)
