@@ -5,7 +5,9 @@
 
 Phases, in order; any failed check raises and the exit code is non-zero:
 
-  1. environment: torch and CUDA versions, the card's name and power limit;
+  1. environment: torch and CUDA versions, the card's name and power limit,
+     and, for information only, whether msgpack is importable (the port's
+     cloud wire carries its own codec and never imports it);
   2. build: compile the CUDA kernels of dliom_tpu_torch/csrc with nvcc;
   3. K1 (grouped grid-update apply) against its plain PyTorch version at
      the bench config's two brick shapes, bit for bit, and both timed;
@@ -115,7 +117,30 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      (c) bench_e2e's dense grids at B = 4 across a spawn: K1's dense entry
      twice per batched step, each call bit-identical to its plain version
      on a CPU copy. Phase 3 adds K1 at 16 slots with 8 x the capacities and
-     phase 4 K2 at B = 8, M = 48, the batched step's shapes.
+     phase 4 K2 at B = 8, M = 48, the batched step's shapes;
+ 12. the cloud service on the card (dliom_tpu_torch/cloud/), after phase
+     11, with phase 10's checkpoint, builder B and B's next CKPT_NEXT scans
+     kept for it: builder C restored from that checkpoint on the card
+     (pipeline_depth 1, bench_e2e's dense grids, num_range_data
+     CKPT_RANGE_DATA, printed as `reduced`) behind a MapBuilderServer on
+     127.0.0.1, fed the same scans in feed_with_sensors' order (IMU,
+     odometry, range, fixed frame) on trajectory 0 by the port's
+     LocalTrajectoryUploader; after the uploader's flush and the server's
+     queue drained, C is flushed in-process under the server's lock (the
+     wire has no flush RPC). Checks: every LioState tensor of C equals B's
+     and so does the pose graph, histograms included, bit for bit (should
+     a float tensor differ, it is named, integer state stays exact and node
+     poses within 2e-3); K1's dense entry twice and K2 once per stepped
+     scan, counted on the SLAM thread; `status` with no error; the uploader
+     with no dead letter. Then through the port's MapBuilderStub:
+     node_poses, submap_poses, constraints, submap_query of the first
+     finished submap (texture bit-identical), occupancy_grid(0.25) and
+     map_cloud(0.2) against the same calls in-process on C, metrics,
+     write_state loaded back into an equal graph, and finish_trajectory
+     over the RPC (the final optimization on the card). Printed: a range
+     frame's bytes, the codec's encode and decode ms on the host, the
+     served scans' wall time beside B's direct ones (host clock), ping's
+     p50 round trip while C steps.
 
 Phase 8 compares step by step, not the free-running CPU trajectory: on
 this course an input change of 1e-6 moves the CPU run's fifth local pose
@@ -146,12 +171,15 @@ capacity knobs: a run without drops inserts the same map at any capacity.
 K1 is checked at both pairs of shapes.
 
 The line before the last is the per-kernel JSON record ({"kernels": [...]});
-the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
+never msgpack.
 """
 
+import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -202,6 +230,8 @@ DENSE_LANES = 4  # phase 11 (c)
 DENSE_LANES_RANGE_DATA = 2  # bench_e2e ships 16: a spawn at the third step
 DENSE_LANES_STEPS = 3
 PHASE11_AIM_S = 120.0
+PHASE12_AIM_S = 30.0
+CLOUD_DEADLINE_S = 300.0  # phase 12: the served scans must be acknowledged and stepped within this
 FIXTURE = "tests/fixtures/reference_map.pbstream"
 FIXTURE_OVERRIDES = {  # tests/test_pose_graph.py::_cfg, the fixture's grid specs
     "trajectory_builder": {"submaps": {"high_resolution": 0.2, "low_resolution": 0.8,
@@ -410,6 +440,8 @@ def environment():
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
+    # for information: the port's cloud wire carries its own codec and never imports msgpack
+    print(f"msgpack importable: {importlib.util.find_spec('msgpack') is not None}")
     return card
 
 
@@ -1429,18 +1461,22 @@ def count_steps():
     return box
 
 
-def graph_differences(a, b, pose_atol=0.0, grids=True):
+def graph_differences(a, b, pose_atol=0.0, grids=True, map_state=False):
     """Where pose graph `b` differs from `a`: counts, ids, poses (beyond
     `pose_atol`), compressed grids (exact), node data (exact), constraints
-    and the fixed-frame, landmark and odometry observations."""
+    and the fixed-frame, landmark and odometry observations. With
+    `map_state` (`b` loaded from a saved map state, which keeps no sensor
+    observations and node clouds quantized to 1 mm) the observations are
+    skipped and the node clouds compared by their point counts."""
     out = []
+    observations = ("fixed_frame_observations", "landmark_observations", "odometry_links")
+    clouds = ("high_points", "low_points")
 
     def pose_diff(x, y):
         return max(float(np.abs(np.asarray(x.rotation) - np.asarray(y.rotation)).max()),
                    float(np.abs(np.asarray(x.translation) - np.asarray(y.translation)).max()))
 
-    for name in ("submaps", "nodes", "constraints", "fixed_frame_observations", "landmark_observations",
-                 "odometry_links"):
+    for name in ("submaps", "nodes", "constraints") + (() if map_state else observations):
         if len(getattr(a, name)) != len(getattr(b, name)):
             out.append(f"{name}: {len(getattr(a, name))} vs {len(getattr(b, name))}")
     if out:
@@ -1465,13 +1501,21 @@ def graph_differences(a, b, pose_atol=0.0, grids=True):
         if max(pose_diff(x.local_pose, y.local_pose), pose_diff(x.global_pose, y.global_pose)) > pose_atol:
             out.append(f"node {i}: pose")
         for f in ("high_points", "high_mask", "low_points", "low_mask", "histogram", "gravity_alignment"):
-            if not np.array_equal(np.asarray(getattr(x, f)), np.asarray(getattr(y, f))):
+            if map_state and f in clouds:
+                continue
+            if map_state and f.endswith("_mask"):
+                same = np.count_nonzero(getattr(x, f)) == np.count_nonzero(getattr(y, f))
+            else:
+                same = np.array_equal(np.asarray(getattr(x, f)), np.asarray(getattr(y, f)))
+            if not same:
                 out.append(f"node {i}: {f}")
     for i, (x, y) in enumerate(zip(a.constraints, b.constraints)):
         if (x.submap_id, x.node_id, x.tag, x.translation_weight, x.rotation_weight) != \
                 (y.submap_id, y.node_id, y.tag, y.translation_weight, y.rotation_weight) \
                 or pose_diff(x.relative, y.relative) > pose_atol:
             out.append(f"constraint {i}")
+    if map_state:
+        return out
     for i, (x, y) in enumerate(zip(a.fixed_frame_observations, b.fixed_frame_observations)):
         if x[0] != y[0] or x[2] != y[2] or not np.array_equal(x[1], y[1]):
             out.append(f"fixed-frame observation {i}")
@@ -1587,9 +1631,10 @@ def check_checkpoint(ga, ac, dev, tmp):
                                                   f"{differ[:4]}); poses within {worst:.3e}"),
           flush=True)
     launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    resumed = {"cfg": cfg, "path": path, "b": b, "scans": nxt, "b_seconds": resume_s}
     return a, cfg, launches, {"bytes": size, "save_s": save_s, "restore_s": restore_s,
                               "bit_identical": exact, "pose_diff": worst, "scans_a": fed,
-                              "steps_a": steps_a, "steps_b": steps_b}
+                              "steps_a": steps_a, "steps_b": steps_b}, resumed
 
 
 def check_pbstream(a, cfg, dev, tmp):
@@ -1728,17 +1773,16 @@ def check_runner(ac, dev, tmp):
                                              "ate_rmse_m", "ate_rmse_aligned_m")} | {"steps": steps["n"]}
 
 
-def check_io(ga, ac, dev):
-    """Phase 10: save, resume and reload a map on the card."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        a, cfg, launches, ckpt = check_checkpoint(ga, ac, dev, tmp)
-        pbstream = check_pbstream(a, cfg, dev, tmp)
-        fixture = check_fixture(dev)
-        runner_k2, runner = check_runner(ac, dev, tmp)
+def check_io(ga, ac, dev, tmp):
+    """Phase 10: save, resume and reload a map on the card. Also returns
+    what phase 12 resumes from: the checkpoint file in `tmp`, builder B and
+    the scans B took after it."""
+    a, cfg, launches, ckpt, resumed = check_checkpoint(ga, ac, dev, tmp)
+    pbstream = check_pbstream(a, cfg, dev, tmp)
+    fixture = check_fixture(dev)
+    runner_k2, runner = check_runner(ac, dev, tmp)
     return launches, runner_k2, {"checkpoint": ckpt, "pbstream": pbstream, "fixture": fixture,
-                                 "runner": runner}
+                                 "runner": runner}, resumed
 
 
 def batched_config(overrides, lanes, capacities, **submaps):
@@ -1944,6 +1988,172 @@ def check_batched(ga, ac, dev, single_rate):
                                                         "seconds": seconds}
 
 
+def timed_host_ms(fn, repeats=REPEATS):
+    """Median host-clock time in ms of fn() (host work only)."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def check_cloud(ga, ac, dev, resumed, tmp):
+    """Phase 12: builder C restored from phase 10's checkpoint behind the
+    port's MapBuilderServer, fed B's next scans by the port's uploader;
+    C against B bit for bit, then the queries over the wire against the
+    same calls in-process, see the module docstring."""
+    import os
+
+    from dliom_tpu_torch.cloud import LocalTrajectoryUploader, MapBuilderServer, MapBuilderStub, wire
+    from dliom_tpu_torch.io.assets_writer import (aggregate_point_cloud, snapshot_node_clouds, voxel_dedup,
+                                                  xray_image)
+    from dliom_tpu_torch.io.serialization import load_state, state_leaves
+    from dliom_tpu_torch.map_builder import map_builder_from_checkpoint
+
+    t_phase = time.perf_counter()
+    cfg, b, scans = resumed["cfg"], resumed["b"], resumed["scans"]
+    c = map_builder_from_checkpoint(resumed["path"], cfg, pipeline_depth=1, device=dev)
+    _, t, pts, ptimes, _ = scans[0]  # one range-data frame as the stub sends it
+    frame = {"method": "add_range_data", "params": {"time": t, "points": np.asarray(pts, np.float32),
+                                                    "trajectory_id": 0, "times": np.asarray(ptimes, np.float32)}}
+    blob = wire.packb(frame)
+    encode_ms = timed_host_ms(lambda: wire.packb(frame))
+    decode_ms = timed_host_ms(lambda: wire.unpackb(blob))
+
+    server = MapBuilderServer(c)
+    server.start()
+    stub = MapBuilderStub(*server.address)
+    up = LocalTrajectoryUploader(*server.address, batch_size=64, flush_interval=0.01)
+    steps = count_steps()
+    ga.DENSE_LAUNCHES = 0  # the served builder's main path: zero the launch counts
+    ac.LAUNCHES = 0
+    items = 0
+    try:
+        t0 = time.perf_counter()
+        for imu, t, pts, ptimes, pose in scans:  # feed_with_sensors' order, trajectory 0 (not registered)
+            for ti, acc, gyr in imu:
+                up.add_imu_data(ti, acc, gyr)
+            up.add_odometry_data(t, pose.rotation, pose.translation)
+            up.add_range_data(t, pts, ptimes)
+            up.add_fixed_frame_pose_data(t + 0.05, pose.translation)
+            items += len(imu) + 3
+        up.start()
+        rtts = []  # ping round trips while the SLAM thread steps
+        deadline = t0 + CLOUD_DEADLINE_S
+        while (up.num_items_sent < items or server._queue.unfinished_tasks) and time.perf_counter() < deadline:
+            p0 = time.perf_counter()
+            stub.ping()
+            rtts.append((time.perf_counter() - p0) * 1e3)
+            time.sleep(0.05)
+        check(up.num_items_sent == items and not server._queue.unfinished_tasks,
+              f"phase 12: {up.num_items_sent} of {items} items acknowledged, "
+              f"{server._queue.unfinished_tasks} queued after {CLOUD_DEADLINE_S:.0f} s")
+        up.flush()
+        with server._lock:  # the JAX server has no flush RPC; the port adds none
+            c.flush()
+        torch.cuda.synchronize()
+        served_s = time.perf_counter() - t0
+        launches = {"grouped_apply_dense": ga.DENSE_LAUNCHES, "affine_chain": ac.LAUNCHES}
+        stepped = steps["n"]
+        steps["restore"]()
+        status = stub._call("status")
+        check(status["num_errors"] == 0 and status["last_error"] == "",
+              f"phase 12: the SLAM thread raised: {status}")
+        check(up.dead_letters == [] and up.num_batches_sent >= 1,
+              f"phase 12: uploader batches {up.num_batches_sent}, dead letters {len(up.dead_letters)}")
+        check(stepped == len(scans), f"phase 12: C stepped {stepped} of {len(scans)} scans")
+        check(launches["grouped_apply_dense"] == 2 * stepped and launches["affine_chain"] == stepped,
+              f"phase 12: C launches {launches} for {stepped} steps")
+
+        # C against B: one checkpoint, one input, one card
+        lb, lc = list(state_leaves(b.trajectory(0)._lio)), list(state_leaves(c.trajectory(0)._lio))
+        check([p for p, _ in lb] == [p for p, _ in lc], "phase 12: the same LioState fields")
+        differ = [(p, x.dtype) for (p, x), (_, y) in zip(lb, lc) if not torch.equal(x, y)]
+        check(not [p for p, dt in differ if not dt.is_floating_point],
+              f"phase 12: C's integer state differs from B's: {differ}")
+        pb, pc = b.pose_graph, c.pose_graph
+        diff = graph_differences(pb, pc)
+        worst = max((float(np.abs(np.asarray(getattr(x, k).translation) - np.asarray(getattr(y, k).translation)).max())
+                     for x, y in zip(pb.nodes, pc.nodes) for k in ("local_pose", "global_pose")), default=0.0)
+        exact = not differ and not diff
+        check(exact or (len(pb.nodes) == len(pc.nodes) and worst <= POSE_ATOL
+                        and not [d for d in diff if "grid" in d or "histogram" in d]),
+              f"phase 12: C differs from B: LioState {differ[:5]}, graph {diff[:5]}, poses {worst:.3e}")
+        print(f"cloud: C from phase 10's checkpoint behind MapBuilderServer, fed B's next {len(scans)} scans "
+              f"({items} items) by LocalTrajectoryUploader in {up.num_batches_sent} batches: K1 dense "
+              f"{launches['grouped_apply_dense']}, K2 {launches['affine_chain']} for {stepped} steps; status "
+              f"{status['num_errors']} errors; C vs B "
+              + ("bit-identical (every LioState tensor and the pose graph)" if exact else
+                 f"NOT bit-identical: LioState {differ}, graph {diff[:6]}; node poses within {worst:.3e}"),
+              flush=True)
+
+        # queries over the wire against the same calls in-process
+        times, trans, rots = stub.node_poses()
+        nodes = c.optimized_node_poses()
+        check(np.array_equal(times, [t for t, _ in nodes])
+              and np.array_equal(trans, np.stack([p.translation for _, p in nodes]))
+              and np.array_equal(rots, np.stack([p.rotation for _, p in nodes]))
+              and trans.dtype == rots.dtype == np.float64, "phase 12: node_poses over the wire")
+        check(np.array_equal(stub.submap_poses(), np.stack([p.translation for p in pc.submap_poses()])),
+              "phase 12: submap_poses over the wire")
+        sub, node, inter = stub.constraints()
+        check(sub.tolist() == [x.submap_id for x in pc.constraints]
+              and node.tolist() == [x.node_id for x in pc.constraints]
+              and inter.tolist() == [x.tag == "INTER" for x in pc.constraints]
+              and sub.dtype == node.dtype == np.int32 and inter.dtype == bool, "phase 12: constraints")
+        first = next(i for i, x in enumerate(pc.submaps) if x.finished)
+        r, want = stub.submap_query(first), c.submap_query(first)
+        check(set(r) == set(want) and r["texture"].dtype == np.uint8
+              and np.array_equal(r["texture"], want["texture"])
+              and r["meters_per_pixel"] == want["meters_per_pixel"]
+              and all(np.array_equal(r[k], want[k]) for k in want if k.endswith(("_q", "_t"))),
+              f"phase 12: submap_query({first}) over the wire")
+        img, origin, res = stub.occupancy_grid(0.25)
+        pts = aggregate_point_cloud(snapshot=snapshot_node_clouds(pc))
+        want_img, want_origin = xray_image(pts, 0.25)
+        check(np.array_equal(img, want_img) and np.array_equal(origin, want_origin) and res == 0.25
+              and img.dtype == np.uint8 and img.max() > 0, "phase 12: occupancy_grid(0.25)")
+        cloud = stub.map_cloud(0.2)
+        check(np.array_equal(cloud, voxel_dedup(pts, 0.2).astype(np.float32)) and len(cloud) > 0,
+              "phase 12: map_cloud(0.2)")
+        check(len(stub.metrics_text()) > 0, "phase 12: metrics")
+        path = os.path.join(tmp, "served.npz")
+        stub.write_state(path)
+        loaded = load_state(path, cfg, device=dev)
+        diff = graph_differences(pc, loaded, map_state=True)
+        check(not diff, f"phase 12: write_state loads back into a different graph: {diff[:5]}")
+        t0 = time.perf_counter()
+        stub.finish_trajectory()
+        finish_s = time.perf_counter() - t0
+        status = stub._call("status")
+        check(status["num_errors"] == 0 and pc.trajectory_states()[0] == "FINISHED",
+              f"phase 12: finish_trajectory over the RPC: {status}")
+        print(f"cloud: node_poses, submap_poses, constraints, submap_query({first}) (texture "
+              f"{r['texture'].shape}), occupancy_grid(0.25) {img.shape}, map_cloud(0.2) {len(cloud)} points, "
+              f"metrics and write_state ({os.path.getsize(path)} bytes, loads back equal) over the wire equal "
+              f"to the same calls in-process; finish_trajectory answered in {finish_s:.2f} s", flush=True)
+    finally:
+        up.shutdown()
+        stub.close()
+        server.shutdown()  # the SLAM thread drains what was acknowledged, then stops
+        for t in server._threads:
+            t.join(CLOUD_DEADLINE_S)
+    check(not any(t.is_alive() for t in server._threads) and not server._queue.unfinished_tasks,
+          "phase 12: the server's queue drained and its threads stopped")
+    seconds = time.perf_counter() - t_phase
+    rtt = float(np.percentile(rtts, 50)) if rtts else float("nan")
+    print(f"cloud: a range-data frame of {len(scans[0][2])} points is {len(blob)} bytes; the codec encodes it in "
+          f"{encode_ms:.3f} ms and decodes it in {decode_ms:.3f} ms (host clock, median of {REPEATS}); served "
+          f"{len(scans)} scans in {served_s:.2f} s against B's {resumed['b_seconds']:.2f} s direct (host clock, "
+          f"noisy); ping round trip p50 {rtt:.2f} ms over {len(rtts)} pings while C stepped", flush=True)
+    print(f"phase 12: {seconds:.1f} s (aim {PHASE12_AIM_S:.0f} s)", flush=True)
+    return launches, {"frame_bytes": len(blob), "encode_ms": encode_ms, "decode_ms": decode_ms,
+                      "served_s": served_s, "direct_s": resumed["b_seconds"], "ping_p50_ms": rtt,
+                      "pings": len(rtts), "finish_s": finish_s, "bit_identical": exact, "pose_diff": worst,
+                      "batches": up.num_batches_sent, "seconds": seconds}
+
+
 def main():
     start = time.perf_counter()
     card = environment()
@@ -1975,23 +2185,27 @@ def main():
     viral_k2, viral = check_viral(ac, get_device("cuda"))
     rtc_k2, correlative = check_correlative(ac, get_device("cuda"))
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
-    t10 = time.perf_counter()
-    io_launches, runner_k2, io = check_io(ga, ac, get_device("cuda"))
-    phase10_s = time.perf_counter() - t10
-    print(f"phase 10: {phase10_s:.1f} s (aim {PHASE10_AIM_S:.0f} s)")
-    batched_launches, batched = check_batched(ga, ac, get_device("cuda"), scans_per_s)
-    check("jax" not in sys.modules, "no jax imported")
+    with tempfile.TemporaryDirectory() as tmp:  # phase 10's checkpoint, builder B and its scans last to phase 12
+        t10 = time.perf_counter()
+        io_launches, runner_k2, io, resumed = check_io(ga, ac, get_device("cuda"), tmp)
+        phase10_s = time.perf_counter() - t10
+        print(f"phase 10: {phase10_s:.1f} s (aim {PHASE10_AIM_S:.0f} s)")
+        batched_launches, batched = check_batched(ga, ac, get_device("cuda"), scans_per_s)
+        cloud_launches, cloud = check_cloud(ga, ac, get_device("cuda"), resumed, tmp)
+        del resumed
+    check("jax" not in sys.modules and "msgpack" not in sys.modules, "no jax or msgpack imported")
     k2_launches = {"slice": launches["affine_chain"], "mapping": map_launches["affine_chain"],
                    "campus": campus_k2, "viral": viral_k2, "correlative": rtc_k2,
                    "checkpoint": io_launches["affine_chain"], "runner": runner_k2,
-                   "batched": batched_launches["affine_chain"]}
+                   "batched": batched_launches["affine_chain"], "cloud": cloud_launches["affine_chain"]}
     k1_launches = {"slice": launches["grouped_apply"], "batched": batched_launches["grouped_apply"]}
     dense_launches = {"mapping": map_launches["grouped_apply_dense"],
-                      "checkpoint": io_launches["grouped_apply_dense"]}
+                      "checkpoint": io_launches["grouped_apply_dense"],
+                      "cloud": cloud_launches["grouped_apply_dense"]}
 
     print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "mapping": mapping,
                       "campus": campus, "viral": viral, "correlative": correlative, "io": io,
-                      "phase10_seconds": phase10_s, "batched": batched,
+                      "phase10_seconds": phase10_s, "batched": batched, "cloud": cloud,
                       "dense_kernels_per_call": dense_kernels,
                       "grouped_apply_by_shape": {**k1, **k1d},
                       "affine_chain_by_length": k2, "affine_chain_launches": k2_launches,
@@ -2002,6 +2216,8 @@ def main():
                                   "checkpoint": f"submaps.num_range_data 16 -> {CKPT_RANGE_DATA}: "
                                                 "at 16 phase 10 took 120.6 s on an H100 80GB HBM3 "
                                                 "(700 W), over its 120 s aim",
+                                  "cloud": f"submaps.num_range_data 16 -> {CKPT_RANGE_DATA}: phase 10's "
+                                           "checkpoint, which builder C restores",
                                   "batched_lanes": f"submaps.num_range_data 100 -> {LANES_RANGE_DATA}: "
                                                    "spawns and a slot recycle within "
                                                    f"{LANES_STEPS} steps",
