@@ -50,7 +50,10 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      copy of the same bank and keys, bit for bit; and each of the first 10
      steps, the window's first two and the steps either side of the
      finish, re-run on the CPU (plain versions) from the card's pre-step
-     state and input, within 2e-3 of the card's local pose;
+     state and input, within 2e-3 of the card's local pose. The course is
+     tools/torch_e2e_loop_ate.py's; its `evaluate` (ATE, endpoint error,
+     INTER, nodes, submaps), the truth paired with the nodes by node time,
+     is printed after the warm-up and after `finish_trajectory()`;
   9. the shipped presets' own paths through `MapBuilder`, at their
      published sizes: (a) `campus` as shipped (dense 0.2 m / 0.45 m grids
      of 512^3 / 256^3 cells, per-record insertion, NDT dynamic
@@ -140,7 +143,23 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      over the RPC (the final optimization on the card). Printed: a range
      frame's bytes, the codec's encode and decode ms on the host, the
      served scans' wall time beside B's direct ones (host clock), ping's
-     p50 round trip while C steps.
+     p50 round trip while C steps;
+ 13. the accuracy tools' paths on the card, after phase 12: (a)
+     tools/torch_loop_recall.py's trials 1000-1002 at its own size (5
+     places, 8 m of drift beyond the proximity gate and the search window):
+     each with proposal recall 1, closure 1 and no false INTER constraint,
+     no K1 or K2 launch; trial 1000 again on the CPU: the same proposals
+     and INTER submaps, the INTER relative pose within LOOP_REL_ATOL; and
+     tools/torch_loop_debug.py's `score_at_pose` of its revisit node at
+     its true pose on submap 0, card against CPU within SCORE_ATOL. (b)
+     tools/torch_long_course.py's generator at LONG_COURSE_LAPS (laps cut,
+     printed as `reduced`), replayed by its `replay` through the runner on
+     the card at `course_overrides()` as shipped (256^3 / 192^3 dense
+     grids, 8192 nodes, 2 pool threads, pipeline_depth 1): the report's
+     ATE keys, as many search latencies as searches, the aligned ATE
+     before the final optimization under 0.5 m, `evaluate_constraints`'
+     keys, K2 once per stepped scan and K1 never (the course's grids take
+     the scatter insert), no drops, no reset, finite poses.
 
 Phase 8 compares step by step, not the free-running CPU trajectory: on
 this course an input change of 1e-6 moves the CPU run's fifth local pose
@@ -170,6 +189,8 @@ touches about twice the groups, so this run sets 1024 / 384. They are
 capacity knobs: a run without drops inserts the same map at any capacity.
 K1 is checked at both pairs of shapes.
 
+Every phase prints its seconds, and the script its total.
+
 The line before the last is the per-kernel JSON record ({"kernels": [...]});
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 never msgpack.
@@ -181,9 +202,12 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))  # the port's tools/torch_*.py
 
 CAPACITY = 32768  # raw points per scan
 IMU_CAP = 48
@@ -232,6 +256,12 @@ DENSE_LANES_STEPS = 3
 PHASE11_AIM_S = 120.0
 PHASE12_AIM_S = 30.0
 CLOUD_DEADLINE_S = 300.0  # phase 12: the served scans must be acknowledged and stepped within this
+LOOP_TRIAL_SEEDS = (1000, 1001, 1002)  # phase 13 (a): tools/torch_loop_recall.py's first three trials
+LOOP_REL_ATOL = 1e-3  # m and rad: trial 1000's INTER relative pose, card vs CPU
+SCORE_ATOL = 1e-5  # score_at_pose, card vs CPU
+LONG_COURSE_LAPS = 0.02  # phase 13 (b): tools/torch_long_course.py ships 2.0 laps (~2670 scans)
+LONG_COURSE_SEED = 11
+PHASE13_AIM_S = 120.0
 FIXTURE = "tests/fixtures/reference_map.pbstream"
 FIXTURE_OVERRIDES = {  # tests/test_pose_graph.py::_cfg, the fixture's grid specs
     "trajectory_builder": {"submaps": {"high_resolution": 0.2, "low_resolution": 0.8,
@@ -639,7 +669,7 @@ def profile_slice(cfg, state, inputs):
 def print_spans(events, n, wall, tag):
     """Per span of lio_step over `n` profiled scans of `wall` ms each: host
     time, kernel time on the card and kernel count per scan, and the
-    card's idle share. Returns the idle share."""
+    card's idle share."""
     def kernels(ev):
         return list(ev.kernels) + [k for c in ev.cpu_children for k in kernels(c)]
 
@@ -655,7 +685,6 @@ def print_spans(events, n, wall, tag):
         print(f"{tag}: {name:20s} host {host:8.2f} ms/scan  kernels "
               f"{sum(k.duration for k in ks) / 1e3 / n:7.3f} ms/scan  "
               f"{len(ks) / n:8.0f} launches/scan")
-    return 1 - busy / wall
 
 
 def check_slice(ga, ac, dev):
@@ -804,46 +833,35 @@ def check_dense_grouped_apply(ga, rng):
 
 
 def e2e_course(n_scans, poses=False):
-    """bench.py's bench_e2e feed, made up front: per scan its IMU samples
-    [(t, acc, gyr)], its stamp, points and point times, and with `poses`
-    the true pose. The first E2E_STATIC scans stand still; then the 5 m
-    circle at 1.5 m/s."""
-    from dliom_tpu_torch.io.synthetic import ImuNoise, ImuSimulator, SyntheticWorld
-    from dliom_tpu_torch.transform.rigid import Rigid3
+    """bench.py's bench_e2e feed, which is tools/torch_e2e_loop_ate.py's
+    course, made up front: per scan its IMU samples [(t, acc, gyr)], its
+    stamp, points and point times, and with `poses` the true pose. The
+    first E2E_STATIC scans stand still; then the 5 m circle at 1.5 m/s."""
+    from torch_e2e_loop_ate import N_REST, course
 
-    radius, speed, period = 5.0, 1.5, 0.1
-    world = SyntheticWorld.create(num_beams=16, num_azimuths=600)
-    sim = ImuSimulator(rate=100.0, noise=ImuNoise(acc_noise=0.02, gyr_noise=0.002,
-                                                  gyr_bias0=(0.0, 0.0, 0.004)), gravity=G, seed=4)
+    check(N_REST == E2E_STATIC, "the e2e course's static scans")
+    return [c if poses else c[:4] for c in course(n_scans)]
 
-    def circle_pose(tau):
-        ang = speed / radius * tau
-        p = np.array([radius * np.sin(ang), radius * (1.0 - np.cos(ang)), 0.0], np.float32)
-        v = np.array([speed * np.cos(ang), speed * np.sin(ang), 0.0])
-        q = np.array([np.cos(ang / 2), 0.0, 0.0, np.sin(ang / 2)], np.float32)
-        return Rigid3(q, p), v
 
-    course, t, tau = [], 0.0, 0.0
-    prev_pose, prev_v = circle_pose(0.0)[0], np.zeros(3)
-    for k in range(n_scans):
-        if k < E2E_STATIC:
-            pose, v = prev_pose, np.zeros(3)
-        else:
-            tau += period
-            pose, v = circle_pose(tau)
-        dts, accs, gyrs, mask = sim.between(prev_pose, pose, prev_v, v, period, 64)
-        imu = []
-        for i in range(int(mask.sum())):
-            t += float(dts[i])
-            imu.append((t, accs[i], gyrs[i]))
-        pts, ptimes = world.cast_scan(pose)
-        course.append((imu, t, pts, ptimes) + ((pose,) if poses else ()))
-        prev_pose, prev_v = pose, v
-    return course
+def e2e_accuracy(pg, course):
+    """tools/torch_e2e_loop_ate.py's `evaluate` of `pg` on the e2e course,
+    the truth paired with the nodes by node time: under pipeline_depth 1 a
+    node lags its scan, so the tool's own pairing (the truth of each scan
+    after which the node count went up) does not hold."""
+    from torch_e2e_loop_ate import evaluate, ground_truth_by_time
+
+    out = evaluate(pg, ground_truth_by_time(pg, [c[1] for c in course], [c[4].translation for c in course]))
+    check(np.isfinite(out["ate_rmse_m"]) and np.isfinite(out["endpoint_err_m"]), f"e2e evaluator finite: {out}")
+    return out
+
+
+def fmt_accuracy(a):
+    return (f"ATE {a['ate_rmse_m']:.4f} m, endpoint error {a['endpoint_err_m']:.4f} m, INTER {a['num_inter']}, "
+            f"nodes {a['num_nodes']}, submaps {a['num_submaps']}")
 
 
 def drive(builder, scans):
-    for imu, t, pts, ptimes in scans:
+    for imu, t, pts, ptimes, *_ in scans:
         for ti, acc, gyr in imu:
             builder.add_imu_data(ti, acc, gyr)
         builder.add_range_data(t, pts, ptimes)
@@ -938,7 +956,7 @@ def check_mapping(ga, ac, dev):
 
     cfg = load_config("basic", E2E_OVERRIDES)
     n_warm = E2E_STATIC + E2E_WARM
-    course = e2e_course(n_warm + E2E_TIMED + 2 * E2E_PROFILED)
+    course = e2e_course(n_warm + E2E_TIMED + 2 * E2E_PROFILED, poses=True)
     builder = MapBuilder(cfg, use_background_threads=True, pipeline_depth=1, device=dev)
     pg = builder.pose_graph
     rec = record_steps(set(range(E2E_COMPARE)), E2E_BANK_FROM, E2E_BANK_MAX)
@@ -952,6 +970,9 @@ def check_mapping(ga, ac, dev):
     warm_s = time.perf_counter() - t_all
     print(f"mapping: warm-up {n_warm} scans in {warm_s:.1f} s; nodes {len(pg.nodes)} submaps "
           f"{len(pg.submaps)} INTER {pg.num_inter_constraints()}", flush=True)
+    accuracy = {"warm_up": e2e_accuracy(pg, course)}
+    print(f"mapping: e2e evaluator (tools/torch_e2e_loop_ate.py on its course at bench_e2e's config, truth "
+          f"by node time) after the {n_warm}-scan warm-up: {fmt_accuracy(accuracy['warm_up'])}", flush=True)
     builder.local_slam_latency_seconds.clear()
     pg.constraint_search_seconds.clear()
     pg.phase_seconds.clear()
@@ -985,6 +1006,9 @@ def check_mapping(ga, ac, dev):
     torch.cuda.synchronize()
     final_spa_s = pg.phase_seconds.get("spa", 0.0) - spa_before
     total_s = time.perf_counter() - t_all
+    accuracy["finished"] = e2e_accuracy(pg, course)
+    print(f"mapping: e2e evaluator at bench_e2e's config after finish_trajectory() ({len(course)} scans, the "
+          f"final optimization run): {fmt_accuracy(accuracy['finished'])}", flush=True)
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
     rec["restore"]()
@@ -1074,7 +1098,7 @@ def check_mapping(ga, ac, dev):
     return launches, {"scans_per_s": E2E_TIMED / timed_s, "p50_ms": float(np.percentile(lat, 50)),
                       "p99_ms": float(np.percentile(lat, 99)), "inter": inter,
                       "nodes": len(pg.nodes), "submaps": len(pg.submaps),
-                      "idle_share": 1 - busy / prof_wall, "phase_seconds": phases}
+                      "idle_share": 1 - busy / prof_wall, "phase_seconds": phases, "e2e_accuracy": accuracy}
 
 
 def campus_course(n_scans):
@@ -1207,13 +1231,22 @@ def check_campus(ac, dev):
     stepped = len(results)
     lat = np.asarray(builder.local_slam_latency_seconds[CAMPUS_COMPARE:]) * 1e3
 
-    # where a campus step's time goes
+    # where a campus step's time goes on the card: its activity only, as in
+    # phase 8 (a profile with host ops took tens of seconds to read; phase 6
+    # keeps the per-span host profile)
     def cycle(scans):
         return lambda: drive(builder, [c[:4] for c in scans])
 
     prof, prof_wall = warm_profile([cycle(course[fed:fed + CAMPUS_PROFILED]),
-                                    cycle(course[fed + CAMPUS_PROFILED:fed + 2 * CAMPUS_PROFILED])])
-    idle = print_spans(prof.events(), CAMPUS_PROFILED, prof_wall / CAMPUS_PROFILED, "campus profile")
+                                    cycle(course[fed + CAMPUS_PROFILED:fed + 2 * CAMPUS_PROFILED])], host=False)
+    events = prof.events()
+    busy, top = card_busy_ms(events)
+    idle = 1 - busy / prof_wall
+    print(f"campus profile: {CAMPUS_PROFILED} scans (card activity only), {prof_wall / CAMPUS_PROFILED:.1f} "
+          f"ms/scan wall, card busy {busy / CAMPUS_PROFILED:.2f} ms/scan, "
+          f"{len(device_events(events)) / CAMPUS_PROFILED:.0f} device activities/scan, idle share {idle:.3f}")
+    for name, ms, n in top:
+        print(f"campus profile: card time {ms:9.2f} ms in {n:6d} x {name[:90]}")
 
     res = init["result"]
     check(res is not None and builder.initialized, "campus: dynamic initialization triggered")
@@ -2154,6 +2187,137 @@ def check_cloud(ga, ac, dev, resumed, tmp):
                       "batches": up.num_batches_sent, "seconds": seconds}
 
 
+def check_loop_recall(ga, ac, dev):
+    """Phase 13 (a): tools/torch_loop_recall.py's trials on the card, trial
+    LOOP_TRIAL_SEEDS[0] again on the CPU, and tools/torch_loop_debug.py's
+    score_at_pose of its revisit node on both."""
+    import torch_loop_debug as ld
+    import torch_loop_recall as lr
+
+    from dliom_tpu_torch.transform.rigid import Rigid3
+
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0
+    trials, card = [], {}
+    for seed in LOOP_TRIAL_SEEDS:
+        keep = {}
+        t0 = time.perf_counter()
+        r = lr.run_trial(seed, device=dev, keep=keep)
+        torch.cuda.synchronize()
+        trials.append(dict(r, seed=seed, seconds=time.perf_counter() - t0))
+        card = card or keep
+        check(r["recall"] == 1.0 and r["closed"] == 1.0 and r["false_constraints"] == 0,
+              f"phase 13: loop-recall trial {seed} on the card: {r}")
+    launches = (ga.LAUNCHES, ga.DENSE_LAUNCHES, ac.LAUNCHES)
+    check(launches == (0, 0, 0), f"phase 13: the loop-recall trials launched K1, K1 dense, K2 {launches}")
+    print("loop recall: " + "; ".join(
+        f"trial {t['seed']} recall {t['recall']:.0f} precision {t['precision']:.3f} closed {t['closed']:.0f} "
+        f"false INTER {t['false_constraints']} in {t['seconds']:.2f} s" for t in trials), flush=True)
+
+    cpu = {}
+    t0 = time.perf_counter()
+    lr.run_trial(LOOP_TRIAL_SEEDS[0], device="cpu", keep=cpu)
+    cpu_s = time.perf_counter() - t0
+
+    def inter(keep):
+        return [c for c in keep["pg"].constraints if c.tag == "INTER"]
+
+    a, b = inter(card), inter(cpu)
+    check(set(card["proposals"]) == set(cpu["proposals"]) and [c.submap_id for c in a] == [c.submap_id for c in b],
+          f"phase 13: trial {LOOP_TRIAL_SEEDS[0]} card vs CPU: proposals {sorted(card['proposals'])} vs "
+          f"{sorted(cpu['proposals'])}, INTER submaps {[c.submap_id for c in a]} vs {[c.submap_id for c in b]}")
+    dt = max(float(np.abs(np.asarray(x.relative.translation, np.float64)
+                          - np.asarray(y.relative.translation, np.float64)).max()) for x, y in zip(a, b))
+    dq = [np.asarray(x.relative.rotation, np.float64) * np.asarray(y.relative.rotation, np.float64) for x, y in zip(a, b)]
+    dr = max(2.0 * float(np.arccos(min(1.0, abs(float(q.sum()))))) for q in dq)
+    print(f"loop recall: trial {LOOP_TRIAL_SEEDS[0]} on the CPU ({cpu_s:.2f} s): proposals "
+          f"{sorted(cpu['proposals'])} and INTER submaps {[c.submap_id for c in b]} as on the card; INTER relative "
+          f"pose card vs CPU {dt:.3e} m, {dr:.3e} rad (tolerance {LOOP_REL_ATOL})", flush=True)
+    check(dt <= LOOP_REL_ATOL and dr <= LOOP_REL_ATOL,
+          f"phase 13: trial {LOOP_TRIAL_SEEDS[0]} INTER relative pose card vs CPU {dt:.3e} m, {dr:.3e} rad")
+
+    # the revisit node sees place 0's cloud from place 0: its true pose in
+    # submap 0's frame is the identity
+    rel = Rigid3(np.asarray([1.0, 0.0, 0.0, 0.0], np.float32), np.zeros(3, np.float32))
+    scores = [ld.score_at_pose(k["pg"], 0, k["pg"].nodes[k["node_id"]], rel) for k in (card, cpu)]
+    worst = max(abs(scores[0][k] - scores[1][k]) for k in ld.SCORE_KEYS)
+    print("loop debug: score_at_pose of the revisit node at its true pose on submap 0, card "
+          + ", ".join(f"{k} {v:.6f}" for k, v in scores[0].items())
+          + f"; largest difference from the CPU {worst:.3e} (tolerance {SCORE_ATOL})", flush=True)
+    check(worst <= SCORE_ATOL, f"phase 13: score_at_pose card vs CPU differ by {worst:.3e}")
+    return {"trials": trials, "cpu_seconds": cpu_s, "inter_t_diff_m": dt, "inter_r_diff_rad": dr,
+            "scores": scores[0], "score_diff": worst}
+
+
+def check_long_course(ga, ac, dev, tmp):
+    """Phase 13 (b): tools/torch_long_course.py's generator at
+    LONG_COURSE_LAPS, then its replay through the runner on the card at
+    course_overrides() as shipped."""
+    import os
+
+    import torch_long_course as lc
+
+    path = os.path.join(tmp, "long_course.npz")
+    t0 = time.perf_counter()
+    gt = lc.generate(path, LONG_COURSE_LAPS, LONG_COURSE_SEED)
+    gen_s = time.perf_counter() - t0
+    box = {}
+
+    def on_builder(builder, report):
+        pg = builder.pose_graph
+        box.update(constraints=lc.evaluate_constraints(builder, gt), searches=len(pg.constraint_search_seconds),
+                   finished=sum(s.finished for s in pg.submaps), results=builder.local_trajectory(0),
+                   poses=builder.optimized_node_poses(),
+                   drops=int(builder.trajectory(0)._lio.frontend.submaps.dense_dropped[0]))
+
+    steps = count_steps()
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the long course's main path starts
+    report = lc.replay(path, dev, on_builder=on_builder)
+    launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES, "affine_chain": ac.LAUNCHES}
+    steps["restore"]()
+    missing = [k for k in ("pre_optimization_ate_rmse_m", "ate_rmse_m", "pre_optimization_ate_rmse_aligned_m")
+               if k not in report]
+    check(not missing, f"phase 13: long-course report lacks {missing}")
+    latency = report.get("constraint_search_latency_s", {"count": 0})
+    check(latency["count"] == box["searches"],
+          f"phase 13: {latency['count']} search latencies reported for {box['searches']} searches")
+    check(report["pre_optimization_ate_rmse_aligned_m"] < 0.5,
+          f"phase 13: long-course aligned ATE before the final optimization {report['pre_optimization_ate_rmse_aligned_m']}")
+    keys = {"num_inter", "constraint_precision", "mean_constraint_t_err_m", "revisit_opportunities", "revisit_recall"}
+    check(keys <= set(box["constraints"]), f"phase 13: evaluate_constraints lacks {keys - set(box['constraints'])}")
+    stepped = len(box["results"])
+    check(launches["affine_chain"] == steps["n"] == stepped > 0,
+          f"phase 13: long course K2 {launches['affine_chain']} launches for {steps['n']} steps, {stepped} results")
+    check(launches["grouped_apply"] == launches["grouped_apply_dense"] == 0,
+          f"phase 13: the long course's dense grids take the scatter insert, yet K1 ran {launches}")
+    check(box["drops"] == 0 and not any(r["failed"] for r in box["results"]),
+          f"phase 13: long course dropped {box['drops']} groups or reset")
+    check(all(np.all(np.isfinite(p.translation)) and np.all(np.isfinite(p.rotation)) for _, p in box["poses"]),
+          "phase 13: long-course node poses finite")
+    print(f"long course: {LONG_COURSE_LAPS} laps (seed {LONG_COURSE_SEED}) generated in {gen_s:.1f} s; "
+          f"{report['num_scans']} scans, {stepped} stepped, {report['num_nodes']} nodes, {report['num_submaps']} "
+          f"submaps ({box['finished']} finished, {box['searches']} searches) in {report['wall_seconds']} s = "
+          f"{report['scans_per_sec']} scans/s; ATE {report['ate_rmse_m']} m (aligned {report['ate_rmse_aligned_m']} "
+          f"m; before the final optimization {report['pre_optimization_ate_rmse_m']} m, aligned "
+          f"{report['pre_optimization_ate_rmse_aligned_m']} m); K2 {launches['affine_chain']} launches, K1 and K1 "
+          f"dense 0 (scatter insert); constraints {json.dumps(box['constraints'])}", flush=True)
+    return launches["affine_chain"], {k: report.get(k) for k in (
+        "num_scans", "num_nodes", "num_submaps", "wall_seconds", "scans_per_sec", "ate_rmse_m", "ate_rmse_aligned_m",
+        "pre_optimization_ate_rmse_m", "pre_optimization_ate_rmse_aligned_m", "constraint_search_latency_s")} | {
+        "steps": stepped, "generate_seconds": gen_s, "finished_submaps": box["finished"], **box["constraints"]}
+
+
+def check_loop_tools(ga, ac, dev, tmp):
+    """Phase 13: the accuracy tools' paths on the card."""
+    t0 = time.perf_counter()
+    recall = check_loop_recall(ga, ac, dev)
+    t1 = time.perf_counter()
+    k2, course = check_long_course(ga, ac, dev, tmp)
+    seconds = time.perf_counter() - t0
+    print(f"phase 13: {seconds:.1f} s (aim {PHASE13_AIM_S:.0f} s; (a) {t1 - t0:.1f}, (b) {seconds - t1 + t0:.1f})",
+          flush=True)
+    return k2, {"loop_recall": recall, "long_course": course, "seconds": seconds}
+
+
 def main():
     start = time.perf_counter()
     card = environment()
@@ -2169,12 +2333,17 @@ def main():
     print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
+    t3 = time.perf_counter()
     k1 = check_grouped_apply(ga, rng)
+    t4 = time.perf_counter()
     k2 = check_affine_chain(ac, rng)
     t5 = time.perf_counter()
+    print(f"phase 3: {t4 - t3:.1f} s; phase 4: {t5 - t4:.1f} s")
     launches, scans_per_s = check_slice(ga, ac, get_device("cuda"))
     print(f"phases 5-6: {time.perf_counter() - t5:.1f} s")
+    t7 = time.perf_counter()
     k1d, dense_kernels = check_dense_grouped_apply(ga, rng)
+    print(f"phase 7: {time.perf_counter() - t7:.1f} s")
     check(0 < dense_kernels <= 2, f"K1 dense entry: {dense_kernels} device kernels per call, "
           "not 1 or 2")
     t8 = time.perf_counter()
@@ -2193,11 +2362,13 @@ def main():
         batched_launches, batched = check_batched(ga, ac, get_device("cuda"), scans_per_s)
         cloud_launches, cloud = check_cloud(ga, ac, get_device("cuda"), resumed, tmp)
         del resumed
+        long_course_k2, loop_tools = check_loop_tools(ga, ac, get_device("cuda"), tmp)
     check("jax" not in sys.modules and "msgpack" not in sys.modules, "no jax or msgpack imported")
     k2_launches = {"slice": launches["affine_chain"], "mapping": map_launches["affine_chain"],
                    "campus": campus_k2, "viral": viral_k2, "correlative": rtc_k2,
                    "checkpoint": io_launches["affine_chain"], "runner": runner_k2,
-                   "batched": batched_launches["affine_chain"], "cloud": cloud_launches["affine_chain"]}
+                   "batched": batched_launches["affine_chain"], "cloud": cloud_launches["affine_chain"],
+                   "long_course": long_course_k2}
     k1_launches = {"slice": launches["grouped_apply"], "batched": batched_launches["grouped_apply"]}
     dense_launches = {"mapping": map_launches["grouped_apply_dense"],
                       "checkpoint": io_launches["grouped_apply_dense"],
@@ -2205,7 +2376,7 @@ def main():
 
     print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "mapping": mapping,
                       "campus": campus, "viral": viral, "correlative": correlative, "io": io,
-                      "phase10_seconds": phase10_s, "batched": batched, "cloud": cloud,
+                      "phase10_seconds": phase10_s, "batched": batched, "cloud": cloud, "loop_tools": loop_tools,
                       "dense_kernels_per_call": dense_kernels,
                       "grouped_apply_by_shape": {**k1, **k1d},
                       "affine_chain_by_length": k2, "affine_chain_launches": k2_launches,
@@ -2222,7 +2393,9 @@ def main():
                                                    "spawns and a slot recycle within "
                                                    f"{LANES_STEPS} steps",
                                   "batched_dense": f"submaps.num_range_data 16 -> {DENSE_LANES_RANGE_DATA}: "
-                                                   f"a spawn within {DENSE_LANES_STEPS} steps"}}))
+                                                   f"a spawn within {DENSE_LANES_STEPS} steps",
+                                  "long_course": f"laps 2.0 -> {LONG_COURSE_LAPS}: the full course is ~2670 "
+                                                 "scans, ~45-70 min at the runner's rate"}}))
 
     def record(name, source, replaces, n, timed, err, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,

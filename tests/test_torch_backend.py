@@ -55,6 +55,7 @@ from dliom_tpu_torch.transform import rigid as TR
 from dliom_tpu_torch.transform.interpolation import TransformInterpolationBuffer as TBuf
 from test_fast_correlative import _world_cloud
 from test_optimization import _build_problem
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 CPU = torch.device("cpu")
 HIGH = (0.2, 64)

@@ -51,6 +51,7 @@ from dliom_tpu_torch.ops.scan_matcher import match
 from dliom_tpu_torch.parallel import batch as TBatch
 from dliom_tpu_torch.sensor.types import pad_point_cloud
 from dliom_tpu_torch.transform.rigid import Rigid3
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 G = 9.80511
 POSE_ATOL = 2e-3

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 TOOL = Path(__file__).resolve().parents[1] / "tools" / "torch_batch_scaling.py"
 

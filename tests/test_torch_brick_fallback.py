@@ -16,6 +16,7 @@ from dliom_tpu.mapping import brick_grid as JB
 from dliom_tpu.mapping import grid as JGrid
 from dliom_tpu_torch.mapping import brick_grid as TB
 from dliom_tpu_torch.mapping import grid as TGrid
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 INSERT = dict(hit_probability=0.55, miss_probability=0.49)
 # (dir_extent, max_bricks, apply_group_bricks, free-space voxels, spread m)

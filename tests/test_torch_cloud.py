@@ -42,6 +42,7 @@ from dliom_tpu_torch.io.serialization import load_state, state_leaves
 from dliom_tpu_torch.map_builder import MapBuilder
 from dliom_tpu_torch.transform.rigid import Rigid3
 from test_torch_map_builder import G, POSE_ATOL, _overrides, _stream
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 CPU = torch.device("cpu")
 SCANS = 10  # static start, then motion that finishes two submaps

@@ -25,6 +25,7 @@ from hypothesis import strategies as st
 
 from dliom_tpu.cloud import wire as jwire
 from dliom_tpu_torch.cloud import wire as twire
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 
 def _ref_pack(obj):

@@ -16,6 +16,7 @@ import torch
 import dliom_tpu_torch
 from dliom_tpu.common import config as jcfg
 from dliom_tpu_torch.common import config as tcfg
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 
 def _tree(obj):

@@ -28,6 +28,7 @@ from dliom_tpu_torch.imu import initialization as TI
 from dliom_tpu_torch.interop import to_torch
 from dliom_tpu_torch.io.synthetic import SyntheticWorld
 from dliom_tpu_torch.transform.rigid import Rigid3 as TRigid3
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 G = 9.80511
 CPU = torch.device("cpu")

@@ -12,6 +12,7 @@ from dliom_tpu.ops.grid_update import _trunc_div as j_trunc_div
 from dliom_tpu_torch.mapping import grid as TG
 from dliom_tpu_torch.ops import morton as TM
 from dliom_tpu_torch.ops.grid_update import _trunc_div as t_trunc_div
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 
 def test_cell_and_linear_index_exact():

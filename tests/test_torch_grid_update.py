@@ -18,6 +18,7 @@ from dliom_tpu.ops import pallas_apply as JP
 from dliom_tpu_torch.mapping.grid import GridSpec as TGridSpec
 from dliom_tpu_torch.ops import grid_update as TG
 from dliom_tpu_torch.ops import grouped_apply as TP
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 KW = dict(hit_probability=0.55, miss_probability=0.49, num_free_space_voxels=2)
 

@@ -16,6 +16,7 @@ from dliom_tpu.mapping import brick_grid as JB
 from dliom_tpu.ops import pallas_apply as JP
 from dliom_tpu_torch.mapping import brick_grid as TB
 from dliom_tpu_torch.ops import grouped_apply as TP
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 HIT_ODDS = 0.55 / 0.45
 MISS_ODDS = 0.49 / 0.51

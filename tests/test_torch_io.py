@@ -50,6 +50,7 @@ from dliom_tpu_torch.transform.rigid import np_rigid
 from test_ground_truth import _loop_graph
 from test_io_tools import _small_pose_graph
 from test_torch_serialization import CPU, carried_graph
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 
 @pytest.mark.parametrize("case", ["empty", "one", "room", "spread"])

@@ -29,6 +29,7 @@ from dliom_tpu_torch.frontend.lio import lio_step as t_lio_step
 from dliom_tpu_torch.interop import lio_scan_input_from_numpy, lio_state_from_numpy, lio_state_to_numpy
 from dliom_tpu_torch.io.synthetic import SyntheticWorld, corkscrew_trajectory
 from dliom_tpu_torch.sensor.types import pad_point_cloud
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 G = 9.80511
 POSE_ATOL = 2e-3

@@ -21,6 +21,7 @@ from dliom_tpu_torch import map_builder as TMB
 from dliom_tpu_torch.common.config import load_config as t_load_config
 from dliom_tpu_torch.io.synthetic import SyntheticWorld
 from dliom_tpu_torch.transform.rigid import Rigid3 as TRigid3
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 G = 9.80511
 POSE_ATOL = 2e-3

@@ -22,6 +22,7 @@ from dliom_tpu_torch import map_builder as TMB
 from dliom_tpu_torch.common.config import load_config as t_load_config
 from dliom_tpu_torch.interop import to_numpy
 from test_torch_map_builder import _feed, _overrides, _stream
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 
 def _jax_capture(tb_cfg, submaps_np, slot, pg):

@@ -24,6 +24,7 @@ from dliom_tpu_torch.io.synthetic import SyntheticWorld
 from dliom_tpu_torch.mapping.grid import GridSpec as TGridSpec
 from dliom_tpu_torch.ops import ndt as TN
 from dliom_tpu_torch.transform.rigid import Rigid3 as TRigid3
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 SPEC_J, SPEC_T = JGridSpec(1.0, 128), TGridSpec(1.0, 128)
 CPU = torch.device("cpu")

@@ -36,6 +36,7 @@ from test_multi_trajectory import _grids
 from test_pbstream import _sample_graph
 from test_pose_graph import _cfg, _make_node
 from test_torch_serialization import CPU, _pg_overrides, assert_same_records, carried_graph
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "reference_map.pbstream")
 TOL = 1e-6

@@ -30,6 +30,7 @@ from dliom_tpu_torch.common.config import load_config as t_load_config
 from dliom_tpu_torch.interop import node_record_from_numpy
 from dliom_tpu_torch.native import TaskThreadPool
 from test_pose_graph import _cfg, _make_node, _world_cloud
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 PG_OVERRIDES = {
     "trajectory_builder": {"submaps": {"high_resolution": 0.2, "low_resolution": 0.8,

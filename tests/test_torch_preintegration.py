@@ -12,6 +12,7 @@ from dliom_tpu.common.config import load_config
 from dliom_tpu.imu import preintegration as J
 from dliom_tpu_torch.imu import affine_chain as K2
 from dliom_tpu_torch.imu import preintegration as T
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 RTOL, ATOL = 1e-5, 1e-6
 _IMU = load_config("basic").trajectory_builder.imu

@@ -14,6 +14,7 @@ from dliom_tpu_torch.common.config import load_config as t_load_config
 from dliom_tpu_torch.map_builder import MapBuilder as TMapBuilder
 from tests.preset_streams import REDUCE, feed, stream
 from tests.test_torch_map_builder import _compare_graphs
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 
 @pytest.mark.parametrize("preset,scans", [("campus", 14), ("viral", 14)])

@@ -11,6 +11,7 @@ import torch
 from dliom_tpu_torch.common.config import PRESETS, load_config
 from dliom_tpu_torch.map_builder import MapBuilder
 from tests.preset_streams import REDUCE, feed, stream
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 STEPS = 6
 

@@ -9,6 +9,7 @@ import torch
 from dliom_tpu.common.config import load_config
 from dliom_tpu.mapping import probability as J
 from dliom_tpu_torch.mapping import probability as T
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 _INS = load_config("basic").trajectory_builder.submaps.range_data_inserter
 # basic/bench inserter odds, plus a sweep around them

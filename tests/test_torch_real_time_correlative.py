@@ -44,6 +44,7 @@ from dliom_tpu_torch.transform.rigid import (
     quat_normalize,
     quat_rotate,
 )
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 CPU = torch.device("cpu")
 SEARCH = dict(linear_search_window=0.45, angular_search_window=0.05, max_scan_range=10.0,

@@ -27,6 +27,7 @@ from dliom_tpu_torch.io.serialization import load_state as t_load_state
 from dliom_tpu_torch.runner import offline as TR
 from test_torch_map_builder import POSE_ATOL, G, _overrides, _stream
 from test_torch_serialization import CPU
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 SCANS = 7  # initialized on the 4th scan; the 7th finishes submap 0
 OUTPUTS = {"output_csv": "traj.csv", "output_state": "state.npz", "output_pbstream": "map.pbstream",

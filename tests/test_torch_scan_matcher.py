@@ -22,6 +22,7 @@ from dliom_tpu_torch.mapping import motion_filter as TMF
 from dliom_tpu_torch.ops import rotational_histogram as TH
 from dliom_tpu_torch.ops import scan_matcher as TS
 from dliom_tpu_torch.transform.rigid import Rigid3 as TRigid3
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 POSE_ATOL = 1e-4
 HIGH = dict(resolution=0.1, dir_extent=64, max_bricks=16384, apply_groups=1024)

@@ -11,6 +11,7 @@ import torch
 
 from dliom_tpu_torch.ops.rotational_histogram import compute_histogram
 from dliom_tpu_torch.ops.segment import segment_plan, segment_sum
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 
 @pytest.mark.parametrize("shape", [(), (3,), (6, 6)])

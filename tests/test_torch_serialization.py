@@ -37,6 +37,7 @@ from dliom_tpu_torch.transform.rigid import np_rigid
 from test_pbstream import _sample_graph
 from test_pose_graph import _cfg
 from test_torch_map_builder import POSE_ATOL, G, _overrides, _stream
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 CPU = torch.device("cpu")
 

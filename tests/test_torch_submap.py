@@ -18,6 +18,7 @@ from dliom_tpu_torch.common.config import load_config as t_load_config
 from dliom_tpu_torch.interop import to_numpy, to_torch
 from dliom_tpu_torch.mapping import grid as TGrid
 from dliom_tpu_torch.mapping import submap as TS
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 DENSE = {"high_resolution": 0.1, "low_resolution": 0.4, "high_resolution_extent": 32,
          "low_resolution_extent": 32, "num_range_data": 2, "high_resolution_max_range": 1.5}

@@ -9,6 +9,7 @@ import torch
 
 from dliom_tpu.transform import rigid as J
 from dliom_tpu_torch.transform import rigid as T
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 ATOL = 1e-6
 

@@ -9,6 +9,7 @@ import torch
 
 from dliom_tpu.ops import voxel_filter as J
 from dliom_tpu_torch.ops import voxel_filter as T
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 
 def _cloud(seed, n=3000):

@@ -25,6 +25,7 @@ from dliom_tpu.transform.rigid import Rigid3 as JRigid3
 from dliom_tpu_torch.imu import preintegration as TP
 from dliom_tpu_torch.imu import window_optimizer as TW
 from dliom_tpu_torch.transform.rigid import Rigid3 as TRigid3
+import torch_threads  # noqa: F401  (one torch thread per test process)
 
 ATOL = 1e-3
 _IMU = load_config("basic").trajectory_builder.imu
