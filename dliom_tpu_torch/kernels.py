@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-All `csrc/*.cu` files compile with nvcc for sm_90a into one shared library
-with a plain C interface, loaded with ctypes. The build runs at first use
+Each `csrc/*.cu` file compiles with its own nvcc for sm_90a, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ctypes. The build runs at first use
 into `build/torch_kernels/` at the repository root, under a name that
 carries the hash of the sources, so an edited source rebuilds. Nothing here
 runs at import: the CPU tests import every module on machines without nvcc.
@@ -25,7 +26,7 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -34,9 +35,11 @@ _SIGNATURES = {
     # bank, rows, starts, ends, fresh, keys, hit_table, miss_table,
     # num_steps, cells_per_group, stream
     "dliom_grouped_apply": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # bank, keys, num_keys, hit_table, miss_table, scratch, num_groups,
-    # cells_per_group, shift, dummy_group, stream
-    "dliom_grouped_apply_dense": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # bank, keys, num_keys, hit_table, miss_table, lookback, num_tiles,
+    # dropped, num_groups, cell_bits, stream
+    "dliom_grouped_apply_dense": [_P, _P, _I, _P, _P, _P, _I, _P, _I, _I, _P],
+    "dliom_dense_tile_keys": [],
+    "dliom_empty_launch": [_P],
     # f, q, a_out, p_out, batch, m, stream
     "dliom_affine_chain": [_P, _P, _P, _P, _I, _I, _P],
 }
@@ -75,14 +78,22 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                    for src, obj in zip(_sources(), objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(compiles, procs)]
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(Path(tmp) / out.name), *objects]
+        if all(code == 0 for _, _, code in results):
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            results.append((link, proc.stdout, proc.returncode))
+        for cmd, text, code in results:
+            if code != 0:
+                raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{text}")
+        os.replace(Path(tmp) / out.name, out)
     return out
 
 

@@ -1,7 +1,7 @@
 """K1: the grouped grid-update apply, CUDA kernel and plain version, with
-the step-table helpers (port of dliom_tpu/ops/pallas_apply.py). The dense
-entry's tables are a kernel on the card and `_dense_tables` in the plain
-version.
+the step-table helpers (port of dliom_tpu/ops/pallas_apply.py). On the
+card the dense entry is one kernel over the sorted keys; its plain version
+builds the step tables (`_dense_tables`) and applies them.
 
 The grid bank is viewed as groups of `cells_per_group` int16 cells. One
 insert's update records are sorted int32 keys `cell << 1 | is_hit` whose
@@ -36,9 +36,10 @@ DENSE_CELLS_PER_GROUP = 16384
 # K1 launches through `apply_grouped_rows` and `apply_grouped_updates`
 # (plain-version calls not counted).
 LAUNCHES = 0
-# Of those, launches through the dense-bank entry `apply_grouped_updates`
-# (each with its table kernel before it).
+# Of those, launches through the dense-bank entry `apply_grouped_updates`.
 DENSE_LAUNCHES = 0
+# The dense kernel's look-back scratch, per (device, stream).
+_LOOKBACK: dict = {}
 
 
 def dense_bank_size(num_cells: int, num_slots: int, apply_groups: int) -> int:
@@ -155,7 +156,11 @@ def apply_grouped_rows(pool_flat, rows, starts, ends, cell_keys, *,
                        fresh=None) -> torch.Tensor:
     """Row-level entry (the caller owns group -> pool-row translation).
     Updates `pool_flat` in place and returns it. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel. Steps with records, or fresh,
+    must own distinct rows. The kernel (one CTA per step) relies on each
+    cell's records being contiguous within a step's range, as the brick
+    insert (`mapping/brick_grid.py::_insert_brick_slots`, records sorted by
+    group, cell and kind) gives them; the plain version does not."""
     if pool_flat.device.type == "cpu":
         return apply_grouped_rows_plain(
             pool_flat, rows, starts, ends, cell_keys, cells_per_group=cells_per_group,
@@ -216,18 +221,34 @@ def apply_grouped_updates_plain(pool_flat, sorted_keys, *, num_groups: int, cell
     return pool_flat, dropped
 
 
+def _lookback_scratch(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """The dense kernel's look-back scratch for `stream` on `device`, at
+    least `tiles` status words: zeroed once when allocated (or grown), then
+    left ready for the next call by each call's last tile. Calls on one
+    stream run one after another, so they share it; each stream has its
+    own."""
+    need = 4 + 2 * tiles  # int32: ticket, finished, epoch, pad; 8 bytes a tile
+    buf = _LOOKBACK.get((device, stream))
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.int32, device=device)
+        _LOOKBACK[(device, stream)] = buf
+    return buf
+
+
 def apply_grouped_updates(pool_flat, sorted_keys, *, num_groups: int, cells_per_group: int,
                           hit_odds: float, miss_odds: float, dummy_group: int):
     """K1's dense-bank entry (pallas_apply.py::apply_grouped_updates): apply
     one insert's sorted packed keys `(group << cell_bits) | (cell << 1) |
     is_hit` (sentinel-padded) to the bank, group id == bank row, in place.
     `dummy_group` is a group no record touches (the bank's padding group);
-    unused steps park there and leave it unchanged. Returns (bank, dropped):
-    `dropped` () int32 counts touched groups beyond `num_groups`, lost whole.
-    CPU tensors take the plain version. On CUDA tensors the tables are a
-    kernel too: one allocation of scratch, then one C call that launches
-    the table kernel and K1 back to back; `dropped` is a view of the
-    scratch."""
+    the plain version parks unused steps there and leaves it unchanged.
+    Returns (bank, dropped): `dropped` () int32 counts touched groups beyond
+    `num_groups`, lost whole. CPU tensors take the plain version. On CUDA
+    tensors one kernel launch applies the keys and counts `dropped` (the
+    group ranks come from a look-back across tiles of keys, with scratch
+    kept per stream); the kernel relies on the keys being sorted, so each
+    cell's records are contiguous (`ops/grid_update.py::_insert_slots`
+    sorts them)."""
     if pool_flat.device.type == "cpu":
         return apply_grouped_updates_plain(
             pool_flat, sorted_keys, num_groups=num_groups, cells_per_group=cells_per_group,
@@ -237,23 +258,26 @@ def apply_grouped_updates(pool_flat, sorted_keys, *, num_groups: int, cells_per_
     _check_bank(pool_flat, cells_per_group, "apply_grouped_updates")
     _check_int32("apply_grouped_updates", "sorted_keys", sorted_keys, sorted_keys.shape[0],
                  pool_flat.device)
-    if sorted_keys.data_ptr() % 16:
-        raise ValueError("apply_grouped_updates: sorted_keys must be 16-byte aligned")
     cb = cell_bits(cells_per_group)
     g_total = pool_flat.shape[0] // cells_per_group
     assert g_total << cb < 2**31, "packed key group id overflow"
     if not 0 <= dummy_group < g_total or num_groups < 0:
         raise ValueError(f"apply_grouped_updates: dummy_group {dummy_group} outside the bank's "
                          f"{g_total} groups, or num_groups {num_groups} < 0")
+    if sorted_keys.shape[0] >= 2**30:
+        raise ValueError("apply_grouped_updates: at most 2**30 - 1 keys")
     hit_t, miss_t = update_tables(float(hit_odds), float(miss_odds), pool_flat.device)
-    scratch = torch.empty(3 * num_groups + 1, dtype=torch.int32, device=pool_flat.device)
-    err = kernels.library().dliom_grouped_apply_dense(
+    lib = kernels.library()
+    tiles = max(1, -(-sorted_keys.shape[0] // lib.dliom_dense_tile_keys()))
+    stream = torch.cuda.current_stream(pool_flat.device).cuda_stream
+    lookback = _lookback_scratch(pool_flat.device, stream, tiles)
+    dropped = torch.empty((), dtype=torch.int32, device=pool_flat.device)
+    err = lib.dliom_grouped_apply_dense(
         pool_flat.data_ptr(), sorted_keys.data_ptr(), sorted_keys.shape[0], hit_t.data_ptr(),
-        miss_t.data_ptr(), scratch.data_ptr(), num_groups, cells_per_group, cb, dummy_group,
-        torch.cuda.current_stream(pool_flat.device).cuda_stream,
+        miss_t.data_ptr(), lookback.data_ptr(), tiles, dropped.data_ptr(), num_groups, cb, stream,
     )
     kernels.check(err, "grouped_apply_dense")
     global LAUNCHES, DENSE_LAUNCHES
     LAUNCHES += 1
     DENSE_LAUNCHES += 1
-    return pool_flat, scratch[3 * num_groups]
+    return pool_flat, dropped

@@ -12,6 +12,9 @@ their sites, and the CPU's bits; the batched step (parallel/batch.py)
 launches K1 once per brick grid and K2 once per step, whatever B is.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,10 @@ from dliom_tpu_torch.mapping import brick_grid as TB
 from dliom_tpu_torch.ops import grouped_apply as K1
 
 pytestmark = pytest.mark.cuda
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -65,6 +72,26 @@ def test_grouped_apply_kernel_matches_plain(cuda_device, cpg, groups, steps):
     assert K1.LAUNCHES == launches + 1
     assert torch.equal(k, p)
     assert not torch.equal(k, bank)
+
+
+@pytest.mark.parametrize("cpg", [16384, 4096])
+@pytest.mark.parametrize("name", sorted(chip_smoke.K1_EDGE_CASES))
+def test_grouped_apply_edge_cases_match_plain(cuda_device, name, cpg):
+    """K1's edge cases (runs across 32-, 128- and 1024-record boundaries,
+    hits before and after misses, fresh steps with and without records,
+    every step parked, dropped ranges, one group) at the brick shapes'
+    group sizes, bit for bit."""
+    bank, rows, starts, ends, keys, fresh = (
+        torch.from_numpy(x).to(cuda_device)
+        for x in chip_smoke.k1_edge_case(name, np.random.default_rng(cpg), cpg, 64))
+    kw = dict(cells_per_group=cpg, hit_odds=0.55 / 0.45, miss_odds=0.49 / 0.51, fresh=fresh)
+    launches = K1.LAUNCHES
+    k = K1.apply_grouped_rows(bank.clone(), rows, starts, ends, keys, **kw)
+    p = K1.apply_grouped_rows_plain(bank.clone(), rows, starts, ends, keys, **kw)
+    torch.cuda.synchronize()
+    assert K1.LAUNCHES == launches + 1
+    assert torch.equal(k, p)
+    assert torch.equal(k, bank) == (name == "all_parked")
 
 
 def test_grouped_apply_rejects_bad_input(cuda_device):
@@ -203,7 +230,7 @@ def test_dense_grouped_updates_kernel_matches_plain(cuda_device, extent, capacit
     assert not torch.equal(k, bank)
 
 
-# The table kernel's edge cases on bench_e2e's 2 x 128^3 bank (256 groups
+# The dense entry's edge cases on bench_e2e's 2 x 128^3 bank (256 groups
 # and the padding group 256): (capacity, touched groups, records, distinct
 # cells per group or None).
 DENSE_EDGE_CASES = {
@@ -213,15 +240,26 @@ DENSE_EDGE_CASES = {
     "capacity_plus_one": (64, list(range(0, 260, 4)), 49152, None),
     "last_real_group": (256, [3, 254, 255], 49152, None),
     "duplicate_heavy": (256, [9, 10], 3000, 12),
+    "long_runs": (256, [5, 6], 3000, 2),  # runs of ~750 across the kernel's tiles
 }
 
 
-@pytest.mark.parametrize("name", sorted(DENSE_EDGE_CASES))
+def _hits_first(keys):
+    """The keys with each run of equal (group, cell) reordered hits first:
+    every cell's records still contiguous, no longer sorted."""
+    k = keys.cpu().numpy().astype(np.int64)
+    order = np.lexsort((-(k & 1), k >> 1))
+    return torch.from_numpy(k[order].astype(np.int32)).to(keys.device)
+
+
+@pytest.mark.parametrize("name", [*sorted(DENSE_EDGE_CASES), "long_runs_hits_first"])
 def test_dense_table_edge_cases_match_plain(cuda_device, name):
-    """The dense entry (table kernel, then K1) against its plain version:
-    bank and `dropped` bit-identical, the padding group unchanged, one
-    launch counted."""
-    capacity, touched, records, cells = DENSE_EDGE_CASES[name]
+    """The dense entry against its plain version: bank and `dropped`
+    bit-identical, the padding group unchanged, one launch counted. The
+    kernel needs each cell's records contiguous, not sorted by kind:
+    `long_runs_hits_first` puts every run's hits first, so a run's last
+    record is a miss and the run's hits lie in earlier tiles."""
+    capacity, touched, records, cells = DENSE_EDGE_CASES[name.removesuffix("_hits_first")]
     rng = np.random.default_rng(len(name))
     cpg, groups = 16384, 257
     bank = torch.from_numpy(rng.integers(0, 32768, groups * cpg).astype(np.int16)).to(cuda_device)
@@ -235,6 +273,8 @@ def test_dense_table_edge_cases_match_plain(cuda_device, name):
     else:
         keys = torch.full((records,), 2**31 - 1, dtype=torch.int32)
     keys = keys.to(cuda_device)
+    if name.endswith("_hits_first"):
+        keys = _hits_first(keys)
     kw = dict(num_groups=capacity, cells_per_group=cpg, hit_odds=0.55 / 0.45,
               miss_odds=0.49 / 0.51, dummy_group=groups - 1)
     launches, dense = K1.LAUNCHES, K1.DENSE_LAUNCHES
@@ -246,6 +286,38 @@ def test_dense_table_edge_cases_match_plain(cuda_device, name):
     assert int(kd) == int(pd) == max(0, len(touched) - capacity)
     assert torch.equal(k[-cpg:], bank[-cpg:])
     assert torch.equal(k, bank) == (not touched)
+
+
+def test_dense_lookback_scratch_across_calls(cuda_device):
+    """The dense kernel's look-back scratch lives on per stream, its epoch
+    advanced by each call: calls of different tile counts, on the current
+    stream and on a side stream, and replays of one CUDA graph each match
+    the plain version."""
+    rng = np.random.default_rng(9)
+    cpg, groups = 16384, 257
+    kw = dict(num_groups=64, cells_per_group=cpg, hit_odds=0.55 / 0.45, miss_odds=0.49 / 0.51,
+              dummy_group=groups - 1)
+    bank = torch.from_numpy(rng.integers(0, 32768, groups * cpg).astype(np.int16)).to(cuda_device)
+    cases = [_dense_keys(rng, t, n).to(cuda_device) for t, n in ((200, 49152), (3, 700), (90, 20000))]
+    side = torch.cuda.Stream(cuda_device)
+    for i, keys in enumerate(cases * 2):
+        with torch.cuda.stream(side if i % 2 else torch.cuda.current_stream(cuda_device)):
+            k, kd = K1.apply_grouped_updates(bank.clone(), keys, **kw)
+            p, pd = K1.apply_grouped_updates_plain(bank.clone(), keys, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p) and int(kd) == int(pd)
+    works = [bank.clone() for _ in cases]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [K1.apply_grouped_updates(w, keys, **kw)[1] for w, keys in zip(works, cases)]
+    for replay in range(3):
+        for w in works:
+            w.copy_(bank)
+        graph.replay()
+        torch.cuda.synchronize()
+        for w, keys, d in zip(works, cases, outs):
+            p, pd = K1.apply_grouped_updates_plain(bank.clone(), keys, **kw)
+            assert torch.equal(w, p) and int(d) == int(pd), replay
 
 
 def test_dense_insert_cuda_matches_cpu(cuda_device):

@@ -5,7 +5,16 @@ state is integer and must match exactly: the bank after
 pool, directory, counts, group_of_slot, epochs and dropped after
 `_insert_brick_slots`, through duplicates, fresh and parking steps,
 pool-full and apply-capacity drops, slot recycling and the epoch wrap.
-The on-card kernel test is in tests/test_torch_cuda_kernels.py."""
+K1's edge cases (chip_smoke.K1_EDGE_CASES: a cell's run across 32-, 128-
+and 1024-record boundaries, hits before and after misses in one run, fresh
+steps with and without records, every step parked, dropped ranges, one
+group; the dense entry's runs across its tiles) hold the plain version to
+JAX's, and the keys both callers pass to K1 keep each cell's records
+contiguous, which the CUDA kernel relies on. The on-card kernel test is in
+tests/test_torch_cuda_kernels.py."""
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -20,6 +29,10 @@ import torch_threads  # noqa: F401  (one torch thread per test process)
 
 HIT_ODDS = 0.55 / 0.45
 MISS_ODDS = 0.49 / 0.51
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 def _grouped_case(seed, groups=12, cpg=1024):
@@ -43,9 +56,15 @@ def _grouped_case(seed, groups=12, cpg=1024):
     return bank, rows, np.asarray(starts, np.int32), np.asarray(ends, np.int32), keys, fresh, cpg
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("seed", [0, 1, *sorted(chip_smoke.K1_EDGE_CASES)])
 def test_apply_grouped_rows_plain_matches_pallas(seed):
-    bank, rows, starts, ends, keys, fresh, cpg = _grouped_case(seed)
+    """Random steps (seeds 0 and 1) and K1's edge cases, 12 groups of 1024."""
+    if isinstance(seed, int):
+        bank, rows, starts, ends, keys, fresh, cpg = _grouped_case(seed)
+    else:
+        cpg = 1024
+        bank, rows, starts, ends, keys, fresh = chip_smoke.k1_edge_case(
+            seed, np.random.default_rng(3), cpg, 12)
     kw = dict(cells_per_group=cpg, hit_odds=HIT_ODDS, miss_odds=MISS_ODDS)
     out_j = np.asarray(JP.apply_grouped_rows(
         jnp.asarray(bank), jnp.asarray(rows), jnp.asarray(starts), jnp.asarray(ends),
@@ -56,7 +75,7 @@ def test_apply_grouped_rows_plain_matches_pallas(seed):
         fresh=torch.from_numpy(fresh), **kw)
     assert out_t is bank_t  # in place
     np.testing.assert_array_equal(out_j, out_t.numpy())
-    assert (out_j != bank).any()
+    assert (out_j != bank).any() == (seed != "all_parked")
     assert TP.LAUNCHES == 0
 
 
@@ -90,6 +109,7 @@ DENSE_EDGE_CASES = {
     "capacity_plus_one": ([0, 1, 2, 3], 300, None),
     "last_real_group": ([3], 900, None),  # beside the padding group
     "duplicate_heavy": ([0, 2], 1500, 12),  # one group of 1500 records
+    "long_runs": ([1, 2], 1800, 2),  # runs of ~900 across 32, 128, 512 and 1024
 }
 DENSE_CPG, DENSE_GROUPS, DENSE_CAPACITY, DENSE_KEYS = 16384, 5, 3, 2048
 
@@ -177,6 +197,81 @@ def test_insert_brick_slots_exact(case):
     assert int(tbank.counts.sum()) > 0
     if case in ("pool_full", "apply_capacity"):
         assert int(tbank.dropped[0]) > 0
+
+
+def _runs(cells, kinds):
+    """(number of runs of equal cells, distinct cells, runs with both
+    kinds, runs with a hit before a miss, runs with a miss before a hit)."""
+    head = np.ones(len(cells), bool)
+    head[1:] = cells[1:] != cells[:-1]
+    run = np.cumsum(head) - 1
+    both = first = last = 0
+    for r in range(run[-1] + 1 if len(run) else 0):
+        k = kinds[run == r]
+        if k.min() != k.max():
+            both += 1
+            first += k[0] == 1
+            last += k[-1] == 1
+    return int(head.sum()), len(np.unique(cells)), both, first, last
+
+
+@pytest.mark.parametrize("caller", ["brick", "dense"])
+def test_callers_keep_each_cells_records_contiguous(monkeypatch, caller):
+    """The CUDA kernel decides each cell from the run of its records, so it
+    needs every cell's records contiguous within a step's range (brick) or
+    within the sorted keys (dense). Capture the keys each caller passes to
+    K1 and check that, and that the runs do mix kinds: hits first on the
+    brick path, hits last on the dense one."""
+    captured = []
+    rng = np.random.default_rng(21)
+    if caller == "brick":
+        real = TP.apply_grouped_rows
+
+        def recording(pool, rows, starts, ends, keys, **kw):
+            captured.append((starts.clone(), ends.clone(), keys.clone(), kw["cells_per_group"]))
+            return real(pool, rows, starts, ends, keys, **kw)
+
+        monkeypatch.setattr(TP, "apply_grouped_rows", recording)
+        spec_kw = CASES["duplicates"][0]
+        hits = rng.normal(0, 0.8, (2, 384, 3)).astype(np.float32)
+        hits[:, :96] = hits[:, 96:192]
+        tbank = TB.make_brick_bank(TB.BrickGridSpec(**spec_kw))
+        TB._insert_brick_slots(tbank, torch.zeros(2, 3), torch.from_numpy(hits),
+                               torch.ones(2, 384, dtype=torch.bool), spec=TB.BrickGridSpec(**spec_kw),
+                               hit_probability=0.55, miss_probability=0.49, num_free_space_voxels=2)
+        (starts, ends, keys, cpg), = captured
+        ranges = [(int(a), int(b)) for a, b in zip(starts, ends) if b > a]
+        cells = [((keys[a:b] >> 1) & (cpg - 1)).numpy() for a, b in ranges]
+        kinds = [(keys[a:b] & 1).numpy() for a, b in ranges]
+    else:
+        from dliom_tpu_torch.mapping.grid import GridSpec
+        from dliom_tpu_torch.ops.grid_update import _insert_slots
+
+        real = TP.apply_grouped_updates
+
+        def recording(pool, keys, **kw):
+            captured.append(keys.clone())
+            return real(pool, keys, **kw)
+
+        monkeypatch.setattr(TP, "apply_grouped_updates", recording)
+        spec = GridSpec(0.2, 64, 32)
+        values = torch.zeros(TP.dense_bank_size(spec.num_cells, 2, 32), dtype=torch.int16)
+        hits = rng.normal(0, 1.0, (2, 1024, 3)).astype(np.float32)
+        hits[:, :256] = hits[:, 256:512]
+        _insert_slots(values, torch.zeros(2, 3), torch.from_numpy(hits),
+                      torch.ones(2, 1024, dtype=torch.bool), spec=spec, hit_probability=0.55,
+                      miss_probability=0.49, num_free_space_voxels=2)
+        (keys,) = captured
+        keys = keys[keys != 2**31 - 1]
+        assert torch.all(keys[1:] >= keys[:-1])
+        cells, kinds = [(keys >> 1).numpy()], [(keys & 1).numpy()]
+    both = first = last = 0
+    for c, k in zip(cells, kinds):
+        n_runs, distinct, b, f, la = _runs(c, k)
+        assert n_runs == distinct  # each cell's records form one run
+        both, first, last = both + b, first + f, last + la
+    assert both > 0
+    assert (first, last) == ((both, 0) if caller == "brick" else (0, both))
 
 
 def test_reset_slot_recycling_and_epoch_wrap():

@@ -51,34 +51,35 @@ REST = 1.6  # static-init phase (s)
 N_REST = int(round(REST / SCAN_PERIOD))  # static scans before the circle
 
 
-def circle_pose(tau: float):
+def circle_pose(tau: float, radius: float = RADIUS):
     """True pose (float32 numpy Rigid3) and world velocity on the circle
-    at time tau (tangent heading)."""
-    ang = SPEED / RADIUS * tau
-    p = np.array([RADIUS * np.sin(ang), RADIUS * (1.0 - np.cos(ang)), 0.0], np.float32)
+    of `radius` at time tau (tangent heading)."""
+    ang = SPEED / radius * tau
+    p = np.array([radius * np.sin(ang), radius * (1.0 - np.cos(ang)), 0.0], np.float32)
     v = np.array([SPEED * np.cos(ang), SPEED * np.sin(ang), 0.0])
     q = np.array([np.cos(ang / 2), 0.0, 0.0, np.sin(ang / 2)], np.float32)
     return Rigid3(q, p), v
 
 
-def course(n_scans, noise_scale=1.0, bias_z=0.004):
+def course(n_scans, noise_scale=1.0, bias_z=0.004, radius=RADIUS):
     """The feed, made up front: per scan its IMU samples [(t, acc, gyr)],
     its stamp, points, point times and true pose. The first N_REST scans
-    stand still at the circle's start; then the circle at SPEED. The gyro's
-    yaw-rate bias `bias_z` makes the odometry drift; white noise on top."""
+    stand still at the circle's start; then the circle of `radius` at
+    SPEED. The gyro's yaw-rate bias `bias_z` makes the odometry drift;
+    white noise on top."""
     world = SyntheticWorld.create(num_beams=16, num_azimuths=600)
     sim = ImuSimulator(rate=100.0, noise=ImuNoise(acc_noise=0.02 * noise_scale,
                                                   gyr_noise=0.002 * noise_scale,
                                                   gyr_bias0=(0.0, 0.0, bias_z)),
                        gravity=G, seed=4)
     out, t, tau = [], 0.0, 0.0
-    prev_pose, prev_v = circle_pose(0.0)[0], np.zeros(3)
+    prev_pose, prev_v = circle_pose(0.0, radius)[0], np.zeros(3)
     for k in range(n_scans):
         if k < N_REST:
             pose, v = prev_pose, np.zeros(3)
         else:
             tau += SCAN_PERIOD
-            pose, v = circle_pose(tau)
+            pose, v = circle_pose(tau, radius)
         dts, accs, gyrs, mask = sim.between(prev_pose, pose, prev_v, v, SCAN_PERIOD, 64)
         imu = []
         for i in range(int(mask.sum())):

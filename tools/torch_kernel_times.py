@@ -8,7 +8,10 @@ M = 48, 64, 200, 7: K1's dense entry) of THIS checkout against the
 dliom_tpu_torch package found under DIR, which builds its kernels into
 DIR/build/torch_kernels. Each phase holds the kernel against its plain
 version on the same inputs (the same seed for every DIR) and times both:
-host clock, CUDA events over 200 calls, CUDA-graph replay, and the bound.
+host clock, CUDA events over 200 calls, CUDA-graph replay, and the bound;
+phase 3 adds a PyTorch read-modify-write probe of the same cells and, where
+DIR has csrc/empty.cu, one empty launch; phase 7 the dense entry's device
+time per kernel (torch.profiler).
 So two checkouts (a parent and a change) compare in one call on one card:
 run the script once per checkout, in turns. Prints the card's name and
 power limit and one JSON line of the times, which --out appends to FILE.
@@ -46,11 +49,11 @@ def main():
     phases.check(package.is_relative_to(root), f"dliom_tpu_torch from {package}, not under {root}")
     kernels.library()
     rng = np.random.default_rng(0)
-    k1 = phases.check_grouped_apply(ga, rng)
+    k1, launch_floor = phases.check_grouped_apply(ga, rng)
     k2 = phases.check_affine_chain(ac, rng)
     k1d, dense_kernels = phases.check_dense_grouped_apply(ga, rng)
     line = json.dumps({"root": args.root, "card": card, "k1": k1, "k2": k2, "k1_dense": k1d,
-                       "dense_kernels_per_call": dense_kernels})
+                       "dense_kernels_per_call": dense_kernels, "empty_launch_graph_ms": launch_floor})
     print(line)
     if args.out:
         with open(args.out, "a") as f:
