@@ -27,8 +27,25 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      dropped grid updates, kernel launch counts from the timed run, and
      the first 3 scans against the port's own CPU run (plain versions);
   6. where the time goes: torch.profiler over PROFILED more scans after a
-     warm-up cycle of as many, per span of lio_step (host time, kernel time,
-     launches) and the card's idle share;
+     warm-up cycle of as many, per span of the eager lio_step (host time,
+     kernel time, launches) and the card's idle share;
+ 14. (run after 6) the compiled step at the bench config, full width
+     (`make_jit_lio_step`, `make_jit_lio_chunk`: CUDA graphs): (a) the first
+     step (the eager warm-up) and the capture and instantiation, timed;
+     (b) at scans 1, 2 and the spawn, the eager `lio_step` and one replay
+     from copies of the same pre-step state: the integer map state (pools,
+     directory, counts, epochs, group_of_slot, drop gauges) and the result
+     flags bit for bit, the largest pose and velocity differences printed,
+     the pose within POSE_ATOL; (c) scans/s over phase 5's timed scans for
+     the eager step, the compiled step and the chunk at bench.py's CHUNK,
+     the replays' K1 and K2 launches equal to phase 5's eager run, and the
+     card's idle share over replays; the eager `lio_step` over EXIT_SCANS
+     scans with its LM's fixed trip and with the early exit
+     (`match(host_exit=True)`), on the card and on the CPU, timed, the
+     poses equal bit for bit.
+     Every step held against the eager step, here and in phases 8-11, has
+     its integer state bit for bit, its pose within POSE_ATOL and its
+     velocity and float state within HELD_ATOL;
   7. K1's dense-bank entry (`apply_grouped_updates`) against its plain
      version at bench_e2e's dense shapes (the 2 x 128^3 high bank and the
      2 x 64^3 low bank, each plus the padding group; 256 steps, 49152
@@ -53,10 +70,15 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      same length, `finish_trajectory()`. Checks:
      initialized, finite poses, no failure reset, zero dropped groups, at
      least one INTER constraint, the final optimization ran, K1's dense
-     entry launched twice and K2 once per stepped scan; in a window of
-     steps after the motion starts that runs across a submap finish, every
-     dense K1 call of the main path against its plain version on a CPU
-     copy of the same bank and keys, bit for bit; and each of the first
+     entry launched twice and K2 once per stepped scan (counted through
+     the replays), one warm-up and one capture, every other step a replay;
+     in a window of steps after the motion starts that runs across a
+     submap finish, each step (a replay) against the eager step from the
+     same pre-step state on the card (`hold_steps`: integer state bit for
+     bit, pose within 2e-3), and every dense K1 call of that eager step
+     against its plain version on a CPU copy of the same bank and keys,
+     bit for bit (the wrappers do not run in a replay, so the chain is
+     graph = eager, eager kernel = plain); and each of the first
      E2E_COMPARE steps, the window's first two and the steps either side of the
      finish, re-run on the CPU (plain versions) from the card's pre-step
      state and input, within 2e-3 of the card's local pose. The course is
@@ -82,7 +104,11 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      group_of_slot, dropped, epochs), K2 once per stepped scan; (c)
      `campus` with the online correlative matcher for RTC_STEPS scans:
      each pre-search's best candidate and score on the card against the
-     same call on the CPU. The overrides the course forces are printed as `reduced`;
+     same call on the CPU. In (b) and (c) MapBuilder steps through its
+     compiled step, and the calls held are those of the eager step from
+     the same pre-step state, itself held against the replay
+     (`hold_steps`); (a) prints the peak device memory of the compiled run
+     beside one eager step's. The overrides the course forces are printed as `reduced`;
  10. save, resume and reload a map on the card (dliom_tpu_torch/io/): (a) a
      live checkpoint at bench_e2e's config (phase 8's dense grids and
      course, with the truth fed as odometry and fixed-frame positions,
@@ -112,10 +138,12 @@ Phases, in order; any failed check raises and the exit code is non-zero:
  11. batched LIO on the card (dliom_tpu_torch/parallel/batch.py): (a) the
      bench config at B = 1, 2, 4, 8 sequences in lockstep, each lane on the
      corkscrew in its own world, K1's capacities SPAWN_CAPACITIES x B:
-     BATCH_WARMUP steps, then BATCH_TIMED timed ones: finite poses, no
-     failure reset, zero dropped groups, exactly 2 K1 and 1 K2 launches per
-     batched step, device kernels per step (torch.profiler with the card's
-     activity only, after a warm-up cycle, at B = 1 and 8) at B = 8 at most
+     through the compiled batched step (`make_batched_lio_step`, a CUDA
+     graph): BATCH_WARMUP steps (the warm-up and capture), then BATCH_TIMED
+     replays: finite poses, no failure reset, zero dropped groups, exactly
+     2 K1 and 1 K2 launches per batched step, device kernels per step
+     (torch.profiler with the card's activity only, after a warm-up
+     cycle, at B = 1 and 8) at B = 8 at most
      1.5 x those at B = 1; aggregate and per-sequence scans/s, K1 and K2
      launches per step and peak device memory per B beside phase 5's
      single-sequence rate (tools/torch_batch_scaling.py --profile prints
@@ -126,9 +154,14 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      the card (2e-3), and the flat 2B-slot insert against each lane's own
      2-slot insert of the same InsertionBatch on a copy of its banks,
      directory, pool, counts, group_of_slot, epochs and dropped bit for bit.
-     (c) bench_e2e's dense grids at B = 4 across a spawn: K1's dense entry
-     twice per batched step, each call bit-identical to its plain version
-     on a CPU copy. Phase 3 adds K1 at 16 slots with 8 x the capacities and
+     (c) bench_e2e's dense grids at B = 4 across a spawn through the
+     compiled batched step, each step held against the eager batched step
+     from the same pre-step state, and that step's K1 dense calls (twice
+     per step) each bit-identical to its plain version on a CPU copy.
+     (d) (a)'s bench config at B = 8 and (b)'s num_range_data, across
+     every lane's spawn and the step after it, through the compiled
+     batched step, each step held against the eager batched step from the
+     same pre-step state. Phase 3 adds K1 at 16 slots with 8 x the capacities and
      phase 4 K2 at B = 8, M = 48, the batched step's shapes;
  12. the cloud service on the card (dliom_tpu_torch/cloud/), after phase
      11, with phase 10's checkpoint, builder B and B's next CKPT_NEXT scans
@@ -198,7 +231,11 @@ touches about twice the groups, so this run sets 1024 / 384. They are
 capacity knobs: a run without drops inserts the same map at any capacity.
 K1 is checked at both pairs of shapes.
 
-Every phase prints its seconds, and the script its total.
+Every phase prints its seconds, and the script its total. Every phase
+that steps a MapBuilder prints and checks its compiled step's counts:
+one warm-up and one capture per trajectory, every other stepped scan a
+replay. The launch counters count what a replay launches: each graph adds
+the launches its capture recorded (common/graph.py).
 
 The line before the last is the per-kernel JSON record ({"kernels": [...]});
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
@@ -222,8 +259,12 @@ CAPACITY = 32768  # raw points per scan
 IMU_CAP = 48
 WARMUP = 2
 TIMED = 104  # crosses the spawn at the 100th inserted scan
+CHUNK = 10  # bench.py's scans per make_jit_lio_chunk call (phase 14)
+EXIT_SCANS = 6  # phase 14: eager scans per run timing the LM's early exit against its fixed trip
 COMPARE = 3  # scans compared with the CPU run
 POSE_ATOL = 2e-3  # m and quaternion components, as tests/test_torch_lio.py
+HELD_ATOL = 1e-6  # graph vs eager: velocity (m/s), and each float state leaf relative to its
+# largest magnitude where that is over 1; both run the same kernels and have read exactly 0
 REPEATS = 25
 EVENT_LAUNCHES = 200  # calls per CUDA-event timing (phases 3, 4, 7)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -265,6 +306,7 @@ LANES_STEPS = 6  # lane 0 recycles a slot at step 4, lane 1 (first scan empty) a
 DENSE_LANES = 4  # phase 11 (c)
 DENSE_LANES_RANGE_DATA = 2  # bench_e2e ships 16: a spawn at the third step
 DENSE_LANES_STEPS = 3
+BRICK_LANES_STEPS = 5  # phase 11 (d): the lanes' first submap finishes at step 3, the next step recycles
 PHASE11_AIM_S = 120.0
 PHASE12_AIM_S = 30.0
 CLOUD_DEADLINE_S = 300.0  # phase 12: the served scans must be acknowledged and stepped within this
@@ -395,13 +437,19 @@ def event_ms(fn, launches=EVENT_LAUNCHES):
 
 def graph_ms(fn, launches=EVENT_LAUNCHES):
     """Per call: `launches` calls of fn() captured in one CUDA graph, whose
-    replay is timed with CUDA events (no host dispatch inside)."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
+    replay is timed with CUDA events (no host dispatch inside). A dense K1
+    call takes look-back scratch the graph owns (`lookback_owner`), made by
+    the eager call before the capture."""
+    from dliom_tpu_torch.ops import grouped_apply as ga
+
+    scratch = ga.LookbackScratch()
+    with ga.lookback_owner(scratch):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -844,7 +892,161 @@ def check_slice(ga, ac, dev):
     print(f"slice: first {COMPARE} scans CUDA vs CPU: largest pose difference {worst:.3e} "
           f"(tolerance {POSE_ATOL}); seconds: the profile {t_cpu - t_prof:.1f}, the CPU run "
           f"{time.perf_counter() - t_cpu:.1f}")
-    return launches, scans_per_s
+    spawn = next(k for k, r in enumerate(results) if int(r.scan.insertion_submap_ids[1]) == 1)
+    return launches, scans_per_s, spawn
+
+
+def check_compiled(ga, ac, dev, eager_rate, eager_launches, spawn):
+    """Phase 14, after phases 5-6: the compiled step (`make_jit_lio_step`,
+    `make_jit_lio_chunk`) at phase 5's bench config, full width. (a) the
+    warm-up (the first step, eager) and the capture and instantiation of
+    its graph, timed; (b) at scans 1, 2 and `spawn` (phase 5's first
+    scan of the second submap), the eager `lio_step` and one graph replay,
+    each from a copy of the same pre-step state (the graph's copied into
+    its buffers): the integer map state bit for bit, the largest pose and
+    velocity differences printed (expected 0), the pose within POSE_ATOL;
+    (c) scans/s over phase 5's TIMED scans for the compiled step (after
+    WARMUP replays from a fresh state, copied into the same graph) beside
+    phase 5's eager rate, its K1 and K2 launches counted through the
+    replays against phase 5's, and the compiled chunk at bench.py's CHUNK
+    over the first CHUNK x (TIMED // CHUNK) of them; the card's idle share
+    over replays of each (torch.profiler, the card's activity only)."""
+    from dliom_tpu_torch.common.config import load_config
+    from dliom_tpu_torch.frontend.lio import LioScanInput, lio_step, make_jit_lio_chunk, make_jit_lio_step
+
+    cfg = load_config("basic", BENCH_OVERRIDES).override(
+        {"trajectory_builder": {"submaps": SPAWN_CAPACITIES}}).trajectory_builder
+    scan = bench_scans(dev)
+    inputs = [scan(i) for i in range(WARMUP + TIMED)]
+    step = make_jit_lio_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(fresh_state(cfg, dev), inputs[0])
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    check(step.counts() == {"steps": 1, "warmups": 1, "captures": 1, "replays": 0}, f"compiled: {step.counts()}")
+    print(f"compiled: the first step (the eager warm-up, then the capture) in {first_s:.2f} s, of which "
+          f"capture and instantiation {step.capture_seconds} s; a replay launches {step.launches}",
+          flush=True)
+
+    held = {}
+    for k in range(1, spawn + 1):
+        if k not in (1, 2, spawn):
+            step(step.state, inputs[k])
+            continue
+        pre = tree_clone(step.state)
+        eager = without_launches(lambda: lio_step(tree_clone(pre), inputs[k], cfg))
+        state, res = step(pre, inputs[k])  # the pre-step copy goes into the graph's buffers
+        held[k] = graph_vs_eager((state, res), eager)
+        created = (int(pre.frontend.submaps.num_created), int(state.frontend.submaps.num_created))
+        held[k]["num_created"] = created
+    check(held[spawn]["num_created"] == (1, 2), f"compiled: scan {spawn} spawns the second submap "
+          f"({held[spawn]['num_created']})")
+    compare = check_held("compiled", held)
+
+    def profiled(run):
+        prof, wall = warm_profile([run, run], host=False)
+        busy, _ = card_busy_ms(prof.events())
+        return None if busy == 0 else 1 - busy / wall
+
+    # (c) the compiled step over phase 5's timed scans, from a fresh state
+    step(fresh_state(cfg, dev), inputs[0])
+    step(step.state, inputs[1])
+    after_warmup = tree_clone(step.state)
+    torch.cuda.synchronize()
+    ga.LAUNCHES = ac.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for inp in inputs[WARMUP:]:
+        step(step.state, inp)
+    torch.cuda.synchronize()
+    step_rate = TIMED / (time.perf_counter() - t0)
+    launches = {"grouped_apply": ga.LAUNCHES, "affine_chain": ac.LAUNCHES}
+    check(launches == eager_launches, f"compiled: launches over the replays {launches}, eager {eager_launches}")
+    sm = step.state.frontend.submaps
+    drops = int(sm.high_brick.dropped[0]) + int(sm.low_brick.dropped[0])
+    check(drops == 0 and int(step.state.failures) == 0 and int(sm.num_created) >= 2,
+          f"compiled: drops {drops}, failures {int(step.state.failures)}, submaps {int(sm.num_created)}")
+    check(bool(torch.isfinite(step.result.scan.local_pose.translation).all()), "compiled: last pose finite")
+    step_idle = profiled(lambda: [step(step.state, inp) for inp in inputs[WARMUP:WARMUP + 5]])
+
+    chunks = [LioScanInput(*(torch.stack(x) for x in zip(*inputs[a:a + CHUNK])))
+              for a in range(WARMUP, WARMUP + TIMED - CHUNK + 1, CHUNK)]
+    chunk = make_jit_lio_chunk(cfg, CHUNK)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk(tree_clone(after_warmup), chunks[0])
+    torch.cuda.synchronize()
+    chunk_first_s = time.perf_counter() - t0
+    chunk.load_state(after_warmup)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in chunks:
+        chunk(chunk.state, c)
+    torch.cuda.synchronize()
+    chunk_rate = CHUNK * len(chunks) / (time.perf_counter() - t0)
+    check(bool(torch.isfinite(chunk.result.scan.local_pose.translation).all()), "compiled: chunk poses finite")
+    chunk_idle = profiled(lambda: chunk(chunk.state, chunks[0]))
+    exit_cost = {d: lm_exit_cost(cfg, after_warmup, inputs[WARMUP:WARMUP + EXIT_SCANS], d)
+                 for d in (dev, torch.device("cpu"))}
+    fmt = lambda x: "not measured (the profiler saw no kernels)" if x is None else f"{x:.3f}"  # noqa: E731
+    print(f"compiled: scans/s over the {TIMED} timed scans: lio_step (eager, phase 5) {eager_rate:.3f}, "
+          f"make_jit_lio_step {step_rate:.3f} (card idle share over 5 replays {fmt(step_idle)}); "
+          f"make_jit_lio_chunk at CHUNK {CHUNK} over {CHUNK * len(chunks)} of them {chunk_rate:.3f} (its first "
+          f"call, {CHUNK} eager steps and the capture, {chunk_first_s:.2f} s, capture and instantiation "
+          f"{chunk.capture_seconds} s; idle share over a replay {fmt(chunk_idle)}); launches over the "
+          f"replays {launches} = phase 5's eager run", flush=True)
+    for d, c in exit_cost.items():
+        print(f"compiled: the eager lio_step on the {d.type} over {EXIT_SCANS} scans, LM early exit "
+              f"{c['early_exit_ms']:.1f} ms/scan ({c['iterations']:.2f} iterations on average), fixed trip of "
+              f"{cfg.ceres_scan_matcher.max_num_iterations} {c['fixed_trip_ms']:.1f} ms/scan; poses equal: "
+              f"{c['equal']}", flush=True)
+        check(c["equal"], f"compiled: on the {d.type} the fixed-trip LM's poses differ from the early exit's")
+    return launches, {"first_step_s": first_s, "capture_s": step.capture_seconds, "graph_vs_eager": compare,
+                      "lm_exit_cost": {d.type: c for d, c in exit_cost.items()},
+                      "eager_scans_per_s": eager_rate, "step_scans_per_s": step_rate, "step_idle_share": step_idle,
+                      "chunk": CHUNK, "chunk_scans_per_s": chunk_rate, "chunk_first_s": chunk_first_s,
+                      "chunk_capture_s": chunk.capture_seconds, "chunk_idle_share": chunk_idle}
+
+
+def lm_exit_cost(cfg, state, inputs, device):
+    """The eager `lio_step` over `inputs` from `state` on `device`, with its
+    LM's fixed trip and with the early exit (`match(host_exit=True)`, a
+    host read per iteration), in the order early, fixed, fixed, early: ms
+    per scan of each (the mean of its two runs), the early exit's mean
+    iterations, and whether both forms give the same poses bit for bit."""
+    import functools
+
+    from dliom_tpu_torch.frontend import local_trajectory_builder as ltb
+    from dliom_tpu_torch.frontend.lio import lio_step
+
+    state, inputs = tree_clone(state), [tree_clone(x) for x in inputs]
+    if device.type == "cpu":
+        state, inputs = tree_cpu(state), [tree_cpu(x) for x in inputs]
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    ms, poses, iters = {True: [], False: []}, {}, []
+
+    def run(host_exit):
+        s, out, match = tree_clone(state), [], ltb.match
+        ltb.match = functools.partial(match, host_exit=host_exit)
+        try:
+            sync()
+            t0 = time.perf_counter()
+            for inp in inputs:
+                s, res = lio_step(s, inp, cfg)
+                out.append(res)
+            sync()
+        finally:
+            ltb.match = match
+        ms[host_exit].append(1e3 * (time.perf_counter() - t0) / len(inputs))
+        poses[host_exit] = [torch.cat([r.scan.local_pose.rotation, r.scan.local_pose.translation]) for r in out]
+        if host_exit:
+            iters[:] = [int(r.scan.matcher_iterations) for r in out]
+
+    for host_exit in (True, False, False, True):
+        without_launches(lambda: run(host_exit))
+    return {"early_exit_ms": float(np.mean(ms[True])), "fixed_trip_ms": float(np.mean(ms[False])),
+            "iterations": float(np.mean(iters)),
+            "equal": all(torch.equal(a, b) for a, b in zip(poses[True], poses[False]))}
 
 
 def dense_keys(ga, rng, groups, num_records, cpg, cells=None):
@@ -1002,43 +1204,168 @@ def card_busy_ms(events):
     return busy / 1e3, top
 
 
-def record_steps(pose_steps, bank_from, bank_max):
-    """Make MapBuilder record what phase 8 holds against the CPU; returns
-    the dict it fills. `lio_step` is wrapped to keep a CPU copy of the
-    pre-step state and input (the banks are updated in place, so the copy
-    comes first) of the steps in `pose_steps` and of every step of the bank
-    window. The bank window starts at step `bank_from` and ends one step
-    after the first step in it that finishes a submap (so it holds the next
-    step's slot recycle), after at most `bank_max` steps. In it, every call
-    of K1's dense entry is held against its plain version on a CPU copy of
-    the same bank and keys at once, bit for bit, `dropped` included."""
+def tree_clone(tree):
+    """Copies of a tree's tensors on their device."""
     from torch.utils._pytree import tree_map
 
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def tree_cpu(tree):
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda x: x.to("cpu", copy=True) if isinstance(x, torch.Tensor) else x, tree)
+
+
+def without_launches(fn):
+    """fn() with the kernel launch counters left as they were (the launches
+    of a comparison are not the main path's), under the compiled step's
+    linear algebra (`common/graph.py::cusolver`), so an eager step takes
+    the routines its graph replays."""
+    from dliom_tpu_torch.common import graph as cg
+
+    before = cg.launch_counts()
+    try:
+        with cg.cusolver():
+            return fn()
+    finally:
+        cg.add_launches({k: before[k] - v for k, v in cg.launch_counts().items()})
+
+
+def graph_vs_eager(graph, eager):
+    """A compiled step's (state, result) against the eager step's from the
+    same pre-step state and input: the integer leaves that differ (state
+    and result flags), the float state leaves that differ with their
+    largest difference (relative to the eager leaf's largest magnitude
+    where that is over 1), and the largest local pose and velocity
+    differences."""
+    from dliom_tpu_torch.io.serialization import state_leaves
+
+    ints, floats = [], {}
+    for (path, x), (_, y) in zip(state_leaves(graph[0]), state_leaves(eager[0])):
+        if not torch.equal(x, y):
+            if x.dtype.is_floating_point:
+                floats[path] = float((x - y).abs().max()) / max(1.0, float(y.abs().max()))
+            else:
+                ints.append(path)
+    g, e = graph[1], eager[1]
+    for f in ("inserted", "finished_submap", "matcher_iterations", "num_hits", "insertion_submap_ids"):
+        if not torch.equal(getattr(g.scan, f), getattr(e.scan, f)):
+            ints.append("result." + f)
+    pose = max(float((g.scan.local_pose.translation - e.scan.local_pose.translation).abs().max()),
+               float((g.scan.local_pose.rotation - e.scan.local_pose.rotation).abs().max()))
+    return {"int_differ": ints, "float_differ": floats, "pose": pose,
+            "velocity": float((g.velocity - e.velocity).abs().max())}
+
+
+def check_held(tag, held):
+    """Every held step's integer state bit for bit, its pose within
+    POSE_ATOL and its velocity and float state within HELD_ATOL of the
+    eager step's; prints the largest differences and names any float state
+    that differs (expected: none)."""
+    check(held, f"{tag}: steps held against the eager step")
+    for k, h in held.items():
+        check(not h["int_differ"], f"{tag} step {k}: graph vs eager integer state differs: {h['int_differ']}")
+        check(h["pose"] <= POSE_ATOL, f"{tag} step {k}: graph vs eager pose differ by {h['pose']:.3e}")
+        check(h["velocity"] <= HELD_ATOL, f"{tag} step {k}: graph vs eager velocity differ by {h['velocity']:.3e}")
+        far = {p: d for p, d in h["float_differ"].items() if not d <= HELD_ATOL}
+        check(not far, f"{tag} step {k}: graph vs eager float state differs beyond {HELD_ATOL}: {far}")
+    floats = sorted({p for h in held.values() for p in h["float_differ"]})
+    pose, vel = max(h["pose"] for h in held.values()), max(h["velocity"] for h in held.values())
+    print(f"{tag}: {len(held)} steps (graph replay or warm-up) against the eager step from the same "
+          f"pre-step state on the card: integer state bit for bit; largest pose difference {pose:.3e}, "
+          f"velocity {vel:.3e}; float state leaves that differ: {floats or 'none'}", flush=True)
+    return {"steps": len(held), "pose_diff": pose, "velocity_diff": vel, "float_differ": floats}
+
+
+def hold_steps(select=lambda k, rec: False, keep=lambda k, rec: False, after=None):
+    """Wrap MapBuilder's per-scan step (`_TrajectoryBuilder._lio_step`, the
+    compiled step on the card); returns the dict it fills. Step k with
+    `keep(k, rec)`: a CPU copy of the pre-step state (the graph's buffers,
+    copied before the replay) and input, for a re-run on the CPU. Step k
+    with `select(k, rec)`: a copy of the pre-step state and the input stay
+    on the card, and after the step the eager `lio_step` runs from them with
+    rec["eager"] set, so the per-call recorders of the caller hold its K1
+    and brick calls against plain or the CPU (the wrappers do not run in a
+    replay); then `graph_vs_eager` into rec["held"][k]. The eager re-run's
+    launches are taken off the counters. `after(k, state, result, rec)`
+    runs after each step. Also keeps each step's gravity_valid."""
     from dliom_tpu_torch import map_builder
+    from dliom_tpu_torch.frontend.lio import LioScanInput, lio_step
+
+    cls = map_builder._TrajectoryBuilder
+    orig = cls._lio_step
+    rec = {"n": 0, "held": {}, "steps": {}, "eager": False, "gravity_valid": []}
+
+    def wrapped(self, arrays):
+        k = rec["n"]
+        hold, kept = select(k, rec), keep(k, rec)
+        if hold or kept:
+            inp = LioScanInput(*(torch.from_numpy(np.asarray(a)).to(self.device) for a in arrays))
+        if kept:
+            rec["steps"][k] = tree_cpu((self._lio, inp))
+        pre = tree_clone(self._lio) if hold else None
+        state, res = orig(self, arrays)
+        rec["gravity_valid"].append(res.gravity_valid.clone())
+        if hold:
+            def eager():
+                rec["eager"] = True
+                try:
+                    return lio_step(pre, inp, self.tb)
+                finally:
+                    rec["eager"] = False
+            rec["held"][k] = graph_vs_eager((state, res), without_launches(eager))
+        if after is not None:
+            after(k, state, res, rec)
+        rec["n"] = k + 1
+        return state, res
+
+    cls._lio_step = wrapped
+    rec["restore"] = lambda: setattr(cls, "_lio_step", orig)
+    return rec
+
+
+def check_graph_counts(tag, counts, stepped, trajectories=1):
+    """The compiled steps' counts (`MapBuilder.step_counts()`, or summed over
+    graphs): one warm-up and one capture per trajectory, every other
+    stepped scan a replay."""
+    print(f"{tag}: compiled step: {counts['steps']} steps = {counts['warmups']} warm-up + "
+          f"{counts['replays']} replays; {counts['captures']} captures", flush=True)
+    check(counts["steps"] == stepped and counts["warmups"] == counts["captures"] == trajectories
+          and counts["replays"] == stepped - trajectories,
+          f"{tag}: {counts} for {stepped} stepped scans over {trajectories} trajectories")
+    return counts
+
+
+def record_steps(pose_steps, bank_from, bank_max):
+    """Make MapBuilder record what phase 8 holds against the CPU; returns
+    the dict it fills (`hold_steps`'). CPU copies of the pre-step state and
+    input of the steps in `pose_steps` and of every step of the bank
+    window. The bank window starts at step `bank_from` and ends one step
+    after the first step in it that finishes a submap (so it holds the next
+    step's slot recycle), after at most `bank_max` steps. Every step of it
+    is held against the eager step from the same pre-step state
+    (`hold_steps`), and every call of K1's dense entry in that eager step
+    against its plain version on a CPU copy of the same bank and keys at
+    once, bit for bit, `dropped` included: graph = eager, eager kernel =
+    plain."""
     from dliom_tpu_torch.ops import grouped_apply as ga
 
-    rec = {"n": 0, "steps": {}, "calls": [], "finished": [], "end": bank_from + bank_max,
-           "window": False, "gravity_valid": []}
-    step, dense = map_builder.lio_step, ga.apply_grouped_updates
+    dense = ga.apply_grouped_updates
 
-    def cpu(tree):
-        return tree_map(lambda x: x.to("cpu", copy=True) if isinstance(x, torch.Tensor) else x, tree)
+    def window(k, rec):
+        return bank_from <= k < rec.setdefault("end", bank_from + bank_max)
 
-    def recording(state, inp, cfg):
-        k = rec["n"]
-        rec["window"] = bank_from <= k < rec["end"]
-        if k in pose_steps or rec["window"]:
-            rec["steps"][k] = cpu((state, inp))
-        out = step(state, inp, cfg)
-        rec["gravity_valid"].append(out[1].gravity_valid)
-        if rec["window"] and int(out[1].scan.finished_submap) >= 0:
-            rec["finished"].append(k)
+    def after(k, state, res, rec):
+        if window(k, rec) and int(res.scan.finished_submap) >= 0:
+            rec.setdefault("finished", []).append(k)
             rec["end"] = min(rec["end"], k + 2)
-        rec["n"] = k + 1
-        return out
+
+    rec = hold_steps(window, lambda k, rec: k in pose_steps or window(k, rec), after)
+    rec.update(finished=[], calls=[], end=bank_from + bank_max)
 
     def dense_recording(pool, keys, **kw):
-        if not rec["window"]:
+        if not rec["eager"]:
             return dense(pool, keys, **kw)
         cpg, before, keys_c = kw["cells_per_group"], pool.to("cpu", copy=True), keys.cpu()
         pool, dropped = dense(pool, keys, **kw)
@@ -1053,10 +1380,12 @@ def record_steps(pose_steps, bank_from, bank_max):
             changed=not torch.equal(got, before), dropped=(int(dropped), int(want_dropped))))
         return pool, dropped
 
-    def restore():
-        map_builder.lio_step, ga.apply_grouped_updates = step, dense
+    restore_steps = rec["restore"]
 
-    map_builder.lio_step = recording
+    def restore():
+        restore_steps()
+        ga.apply_grouped_updates = dense
+
     ga.apply_grouped_updates = dense_recording
     rec["restore"] = restore
     return rec
@@ -1137,6 +1466,7 @@ def check_mapping(ga, ac, dev):
 
     results = builder.local_trajectory(0)
     stepped = len(results)
+    graph_counts = check_graph_counts("mapping", builder.step_counts(), stepped)
     inserted = sum(r["inserted"] for r in results)
     inter = pg.num_inter_constraints()
     drops = int(builder.trajectory(0)._lio.frontend.submaps.dense_dropped[0])
@@ -1190,11 +1520,13 @@ def check_mapping(ga, ac, dev):
     for c in inserting:
         parks.setdefault(c["groups"], []).append(c["parked"])
     check(any(max(v) > 0 for v in parks.values()), "steps parked on the padding group")
-    print(f"mapping: K1 dense entry on the main path, steps {E2E_BANK_FROM}-{rec['end'] - 1} "
+    print(f"mapping: K1 dense entry of the eager step held at steps {E2E_BANK_FROM}-{rec['end'] - 1} "
           f"(submap finished at step {rec['finished'][0]}): {len(calls)} calls ({len(inserting)} "
           f"with records) bit-identical to plain on the CPU, dropped 0, padding group unchanged; "
           + "; ".join(f"{g}-group bank: {min(v)}-{max(v)} of 256 steps parked"
                       for g, v in sorted(parks.items())))
+    check(sorted(rec["held"]) == list(range(E2E_BANK_FROM, rec["end"])), "held every step of the bank window")
+    held = check_held("mapping", rec["held"])
 
     # steps again on the CPU (K1, K2 plain), each from the card's pre-step
     # state and input: the first E2E_COMPARE, then the start of the bank
@@ -1218,6 +1550,7 @@ def check_mapping(ga, ac, dev):
     print(f"mapping: steps {compared} re-run on the CPU from the card's state: largest "
           f"pose difference {worst:.3e} (tolerance {POSE_ATOL})")
     return launches, {"scans_per_s": E2E_TIMED / timed_s, "warm_up_scans": n_warm - E2E_STATIC,
+                      "compiled_step": graph_counts, "graph_vs_eager": held,
                       "p50_ms": float(np.percentile(lat, 50)),
                       "p99_ms": float(np.percentile(lat, 99)), "inter": inter,
                       "nodes": len(pg.nodes), "submaps": len(pg.submaps),
@@ -1341,17 +1674,35 @@ def check_campus(ac, dev):
                            + 2 * CAMPUS_PROFILED)
     builder = MapBuilder(cfg, device=dev)
     init = record_initializer(builder)
-    rec = record_steps(set(range(CAMPUS_COMPARE)), 10**9, 0)
+    rec = hold_steps(keep=lambda k, _: k < CAMPUS_COMPARE)
     ac.LAUNCHES = 0  # the main path starts: zero the launch counts
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fed = drive_until(builder, course, CAMPUS_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ac.LAUNCHES
+    compiled_mib = (torch.cuda.max_memory_allocated() / 2**20, torch.cuda.memory_reserved() / 2**20)
     rec["restore"]()
     init["restore"]()
     results = builder.local_trajectory(0)[:]
     stepped = len(results)
+    graph_counts = check_graph_counts("campus", builder.step_counts(), stepped)
+    # the eager step's peak memory from the last step's state and input
+    traj = builder.trajectory(0)
+    pre, inp = tree_clone(traj._lio), tree_clone(traj._step.inp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_mib = torch.cuda.memory_allocated() / 2**20
+    without_launches(lambda: lio_step(pre, inp, tb))
+    torch.cuda.synchronize()
+    eager_mib = torch.cuda.max_memory_allocated() / 2**20
+    del pre, inp
+    print(f"campus: peak device memory over the compiled run {compiled_mib[0]:.0f} MiB allocated, "
+          f"{compiled_mib[1]:.0f} MiB reserved (the graph pool included); one eager step from copies of "
+          f"the same state and input {eager_mib:.0f} MiB allocated at its peak, "
+          f"{eager_mib - held_mib:.0f} MiB above the {held_mib:.0f} MiB held before it (the builder's "
+          f"banks and those copies)", flush=True)
     lat = np.asarray(builder.local_slam_latency_seconds[CAMPUS_COMPARE:]) * 1e3
 
     # where a campus step's time goes on the card: its activity only, as in
@@ -1413,8 +1764,7 @@ def check_campus(ac, dev):
           f"= {init['segments']} segments + {stepped} steps; {stepped / steps_s:.3f} scans/s over the "
           f"stepped scans ({steps_s:.2f} s, the first {CAMPUS_COMPARE} copied to the host); scan latency "
           f"p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms (steps "
-          f"{CAMPUS_COMPARE}-{stepped - 1}); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+          f"{CAMPUS_COMPARE}-{stepped - 1})", flush=True)
 
     worst = 0.0
     for k in range(CAMPUS_COMPARE):
@@ -1429,30 +1779,32 @@ def check_campus(ac, dev):
           f"difference {worst:.3e} (tolerance {POSE_ATOL})")
     return launches, {"scans_per_s": stepped / steps_s, "p50_ms": float(np.percentile(lat, 50)),
                       "p99_ms": float(np.percentile(lat, 99)), "idle_share": idle,
+                      "compiled_step": graph_counts, "compiled_peak_mib": compiled_mib[0],
+                      "compiled_reserved_mib": compiled_mib[1], "eager_step_peak_mib": eager_mib,
                       "init_seconds": init["seconds"], "init_parts": init["parts"],
                       "init_scan": init_scan, "init_velocity_error": v_err, "init_cuda_vs_cpu": init_diff}
 
 
 def record_brick_calls(spec):
-    """Hold every high-grid brick insert and slot reset of the main path
-    against the same call on a CPU copy of its inputs, bit for bit, from
-    now until the first insert with records after the second pending
-    reset (the first that recycles a slot). Returns the dict it fills."""
-    from torch.utils._pytree import tree_map
-
+    """Hold every step of the main path against the eager step from the
+    same pre-step state (`hold_steps`), and every high-grid brick insert
+    and slot reset of that eager step against the same call on a CPU copy
+    of its inputs, bit for bit: graph = eager, eager call = CPU. From now
+    until the first insert with records after the second pending reset
+    (the first that recycles a slot). Returns the dict it fills, with the
+    held steps under "hold"."""
     from dliom_tpu_torch.mapping import submap
 
     rec = {"open": True, "inserts": [], "resets": []}
+    hold = rec["hold"] = hold_steps(lambda k, _: rec["open"])
     insert, reset = submap._insert_brick_slots, submap.reset_slot
-
-    def cpu(tree):
-        return tree_map(lambda x: x.to("cpu", copy=True) if isinstance(x, torch.Tensor) else x, tree)
+    cpu = tree_cpu
 
     def same(got, want):
         return all(torch.equal(getattr(got, f).cpu(), getattr(want, f)) for f in got._fields)
 
     def recording_insert(bank, origins, hits, masks, **kw):
-        if not (rec["open"] and kw["spec"] == spec):
+        if not (hold["eager"] and rec["open"] and kw["spec"] == spec):
             return insert(bank, origins, hits, masks, **kw)
         before = cpu((bank, origins, hits, masks))
         out = insert(bank, origins, hits, masks, **kw)
@@ -1463,7 +1815,7 @@ def record_brick_calls(spec):
         return out
 
     def recording_reset(bank, bspec, slot, pending=True):
-        if not (rec["open"] and bspec == spec):
+        if not (hold["eager"] and rec["open"] and bspec == spec):
             return reset(bank, bspec, slot, pending)
         before = cpu((bank, slot, pending))
         out = reset(bank, bspec, slot, pending)
@@ -1474,6 +1826,7 @@ def record_brick_calls(spec):
     submap._insert_brick_slots, submap.reset_slot = recording_insert, recording_reset
 
     def restore():
+        hold["restore"]()
         submap._insert_brick_slots, submap.reset_slot = insert, reset
 
     rec["restore"] = restore
@@ -1511,6 +1864,8 @@ def check_viral(ac, dev):
 
     results = builder.local_trajectory(0)
     stepped = len(results)
+    graph_counts = check_graph_counts("viral", builder.step_counts(), stepped)
+    held = check_held("viral", rec["hold"]["held"])
     sm = builder.trajectory(0)._lio.frontend.submaps
     drops = {"brick": int(sm.high_brick.dropped[0]), "dense": int(sm.dense_dropped[0])}
     for k, r in enumerate(results):
@@ -1533,13 +1888,14 @@ def check_viral(ac, dev):
           f"{window_scans} scans ({len(inserts)} calls, "
           f"{sum(1 for c in inserts if c['records'])} with records) "
           f"and {len(resets)} slot resets ({len(pending)} pending, slots {[c['slot'] for c in pending]}) "
-          f"bit-identical to the CPU; pool groups {inserts[-1]['counts']}; drops {drops}; K2 launches "
+          f"of the eager steps held against the graph bit-identical to the CPU; pool groups {inserts[-1]['counts']}; drops {drops}; K2 launches "
           f"{launches}; timed {timed} scans after the window in {timed_s:.3f} s = {timed / timed_s:.3f} "
           f"scans/s, scan latency p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms",
           flush=True)
     return launches, {"scans_per_s": timed / timed_s, "p50_ms": float(np.percentile(lat, 50)),
                       "p99_ms": float(np.percentile(lat, 99)), "bit_identical_inserts": len(inserts),
-                      "bit_identical_resets": len(resets)}
+                      "bit_identical_resets": len(resets), "compiled_step": graph_counts,
+                      "graph_vs_eager": held}
 
 
 def check_correlative(ac, dev):
@@ -1554,8 +1910,11 @@ def check_correlative(ac, dev):
     course = campus_course(2 * (tb.frames_for_dynamic_initialization + 1) + RTC_STEPS)
     builder = MapBuilder(cfg, device=dev)
     calls, match = [], rtc.match
+    hold = hold_steps(lambda k, _: True)
 
     def recording(initial, points, mask, values, spec, **kw):
+        if not hold["eager"]:
+            return match(initial, points, mask, values, spec, **kw)
         t0 = time.perf_counter()
         out = match(initial, points, mask, values, spec, **kw)
         torch.cuda.synchronize()
@@ -1571,6 +1930,9 @@ def check_correlative(ac, dev):
     drive_until(builder, course, RTC_STEPS)
     launches = ac.LAUNCHES
     rtc.match = match
+    hold["restore"]()
+    graph_counts = check_graph_counts("correlative", builder.step_counts(), RTC_STEPS)
+    held = check_held("correlative", hold["held"])
     check(len(calls) == RTC_STEPS, f"correlative: {len(calls)} pre-searches for {RTC_STEPS} steps")
     worst = max(abs(c["score"][0] - c["score"][1]) for c in calls)
     for k, c in enumerate(calls):
@@ -1584,9 +1946,11 @@ def check_correlative(ac, dev):
     print(f"correlative: {RTC_STEPS} pre-searches over {n_cand} candidates x {tb.max_high_res_points} "
           f"points: "
           f"best candidates {[c['index'][0] for c in calls]} equal to the CPU's, largest score difference "
-          f"{worst:.3e} (tolerance {RTC_SCORE_ATOL}); {np.median([c['ms'] for c in calls]):.1f} ms per "
-          f"pre-search (median, host clock); K2 launches {launches}")
-    return launches, {"candidates": n_cand, "score_diff": worst,
+          f"{worst:.3e} (tolerance {RTC_SCORE_ATOL}) in the eager steps held against the graph; "
+          f"{np.median([c['ms'] for c in calls]):.1f} ms per pre-search (median, host clock, eager); "
+          f"K2 launches {launches}")
+    return launches, {"candidates": n_cand, "score_diff": worst, "compiled_step": graph_counts,
+                      "graph_vs_eager": held,
                       "ms": float(np.median([c["ms"] for c in calls]))}
 
 
@@ -1603,18 +1967,29 @@ def feed_with_sensors(builder, scans):
 
 
 def count_steps():
-    """Count `lio_step` calls of MapBuilder; returns the dict it fills."""
+    """Count MapBuilder's steps (`_TrajectoryBuilder._lio_step`), and keep
+    each trajectory's compiled step; returns the dict it fills."""
     from dliom_tpu_torch import map_builder
 
-    step, box = map_builder.lio_step, {"n": 0}
+    cls = map_builder._TrajectoryBuilder
+    step, box = cls._lio_step, {"n": 0, "graphs": {}}
 
-    def counting(state, inp, cfg):
+    def counting(self, arrays):
         box["n"] += 1
-        return step(state, inp, cfg)
+        out = step(self, arrays)
+        box["graphs"][id(self)] = self._step
+        return out
 
-    map_builder.lio_step = counting
-    box["restore"] = lambda: setattr(map_builder, "lio_step", step)
+    cls._lio_step = counting
+    box["restore"] = lambda: setattr(cls, "_lio_step", step)
     return box
+
+
+def graphs_counts(box):
+    """The counts of the compiled steps a `count_steps` box saw, summed."""
+    from dliom_tpu_torch.common.graph import sum_counts
+
+    return sum_counts(box["graphs"].values())
 
 
 def graph_differences(a, b, pose_atol=0.0, grids=True, map_state=False):
@@ -1712,6 +2087,7 @@ def check_checkpoint(ga, ac, dev, tmp):
     drive_s = time.perf_counter() - t0
     launches_a = {"grouped_apply_dense": ga.DENSE_LAUNCHES, "affine_chain": ac.LAUNCHES}
     steps_a = steps["n"]
+    counts_a = check_graph_counts("checkpoint A", a.step_counts(), steps_a)
     check(finished_at is not None, "phase 10: a submap finished on the course")
     check(launches_a["grouped_apply_dense"] == 2 * steps_a and launches_a["affine_chain"] == steps_a,
           f"phase 10: builder A launches {launches_a} for {steps_a} steps")
@@ -1764,6 +2140,8 @@ def check_checkpoint(ga, ac, dev, tmp):
     launches_b = {"grouped_apply_dense": ga.DENSE_LAUNCHES, "affine_chain": ac.LAUNCHES}
     steps_b = steps["n"]
     steps["restore"]()
+    # B's trajectory builders are new: its graph warms up and captures again
+    counts_b = check_graph_counts("checkpoint B", b.step_counts(), steps_b)
     check(steps_b == CKPT_NEXT, f"phase 10: B stepped {steps_b} of {CKPT_NEXT} scans")
     check(launches_b["grouped_apply_dense"] == 2 * steps_b and launches_b["affine_chain"] == steps_b,
           f"phase 10: builder B launches {launches_b} for {steps_b} steps")
@@ -1790,7 +2168,8 @@ def check_checkpoint(ga, ac, dev, tmp):
     resumed = {"cfg": cfg, "path": path, "b": b, "scans": nxt, "b_seconds": resume_s}
     return a, cfg, launches, {"bytes": size, "save_s": save_s, "restore_s": restore_s,
                               "bit_identical": exact, "pose_diff": worst, "scans_a": fed,
-                              "steps_a": steps_a, "steps_b": steps_b}, resumed
+                              "steps_a": steps_a, "steps_b": steps_b, "compiled_step_a": counts_a,
+                              "compiled_step_b": counts_b}, resumed
 
 
 def check_pbstream(a, cfg, dev, tmp):
@@ -1913,6 +2292,7 @@ def check_runner(ac, dev, tmp):
     report = offline.run(args)
     launches = ac.LAUNCHES
     steps["restore"]()
+    counts = check_graph_counts("runner", graphs_counts(steps), steps["n"])
     missing = [k for k in RUNNER_REPORT_KEYS if k not in report]
     check(not missing, f"phase 10: runner report lacks {missing}")
     check(report["num_nodes"] > 0 and all(os.path.getsize(f) > 0 for f in files.values()),
@@ -1926,7 +2306,8 @@ def check_runner(ac, dev, tmp):
           f"final optimization {report['pre_optimization_ate_rmse_m']} m); K2 {launches} launches; the "
           "state reloads", flush=True)
     return launches, {k: report[k] for k in ("num_scans", "num_nodes", "scans_per_sec", "wall_seconds",
-                                             "ate_rmse_m", "ate_rmse_aligned_m")} | {"steps": steps["n"]}
+                                             "ate_rmse_m", "ate_rmse_aligned_m")} | {"steps": steps["n"],
+                                                                                     "compiled_step": counts}
 
 
 def check_io(ga, ac, dev, tmp):
@@ -1977,7 +2358,7 @@ def batched_scaling(ga, ac, dev, single_rate):
         def run(n):
             for _ in range(n):
                 box["state"], res = step(box["state"], scans[box["i"] % len(scans)])
-                box["results"].append(res)
+                box["results"].append(tree_clone(res))  # the next replay rewrites the graph's result
                 box["i"] += 1
 
         run(BATCH_WARMUP)
@@ -1992,6 +2373,7 @@ def batched_scaling(ga, ac, dev, single_rate):
         k1, k2 = k1 + ga.LAUNCHES, k2 + ac.LAUNCHES
         check(launches == {"grouped_apply": 2 * BATCH_TIMED, "affine_chain": BATCH_TIMED},
               f"phase 11: B={b} launches {launches} for {BATCH_TIMED} steps (2 K1, 1 K2 per step)")
+        counts = check_graph_counts(f"batched B={b}", step.counts(), BATCH_WARMUP + BATCH_TIMED)
         peak = (torch.cuda.max_memory_allocated() - held) / 2**20
         t_prof = time.perf_counter()
         per_step = idle = None
@@ -2016,7 +2398,8 @@ def batched_scaling(ga, ac, dev, single_rate):
         check(int(state.failures.sum()) == 0, f"phase 11: B={b} no failure resets")
         check(not any(drops.values()), f"phase 11: B={b} dropped grid updates {drops}")
         rows[b] = {"aggregate_scans_per_s": b * BATCH_TIMED / wall, "per_seq_scans_per_s": BATCH_TIMED / wall,
-                   "device_kernels_per_step": per_step, "idle_share": idle, "peak_mem_mib": peak}
+                   "device_kernels_per_step": per_step, "idle_share": idle, "peak_mem_mib": peak,
+                   "compiled_step": counts}
         r = rows[b]
         profiled = (f"{per_step:.0f} device kernels per step, card idle {idle:.3f}" if per_step is not None
                     else "kernels not counted")
@@ -2092,41 +2475,95 @@ def batched_lanes(dev):
     return {"steps": LANES_STEPS, "spawns": spawns, "pose_diff": worst, "inserts_compared": compared}
 
 
-def batched_dense(ga, dev):
-    """Phase 11 (c): bench_e2e's dense grids at B = DENSE_LANES across a
-    spawn; every call of K1's dense entry against its plain version on a
-    CPU copy of the same bank and keys, bit for bit, `dropped` included."""
-    from dliom_tpu_torch.parallel.batch import make_batched_lio_state, make_batched_lio_step
+def batched_held(ga, ac, dev, tag, cfg, lanes, steps, dense, finish=False):
+    """Phase 11 (c) and (d): `steps` compiled batched steps at B = `lanes`
+    from a fresh state, each held against the eager batched step from the
+    same pre-step state (`graph_vs_eager`, `check_held`), across every
+    lane's spawn (and, with `finish`, a submap's finish). With `dense`,
+    every call of K1's dense entry in that eager step is held against its
+    plain version on a CPU copy of the same bank and keys, bit for bit,
+    `dropped` included. Returns (launches, record)."""
+    from dliom_tpu_torch.parallel.batch import batched_lio_body, make_batched_lio_state, make_batched_lio_step
 
-    cfg = batched_config(E2E_OVERRIDES, DENSE_LANES,
-                         {"dense_apply_groups": E2E_OVERRIDES["trajectory_builder"]["submaps"]["dense_apply_groups"]},
-                         num_range_data=DENSE_LANES_RANGE_DATA).trajectory_builder
-    dense, calls = ga.apply_grouped_updates, []
+    entry = ga.apply_grouped_updates
+    calls, active = [], {"on": False}
 
     def held(pool, keys, **kw):
+        if not active["on"]:
+            return entry(pool, keys, **kw)
         before, keys_c = pool.to("cpu", copy=True), keys.cpu()
-        pool, dropped = dense(pool, keys, **kw)
+        pool, dropped = entry(pool, keys, **kw)
         want, want_dropped = ga.apply_grouped_updates_plain(before, keys_c, **kw)
         calls.append((torch.equal(pool.cpu(), want), int(dropped), int(want_dropped)))
         return pool, dropped
 
-    state = make_batched_lio_state(cfg, DENSE_LANES, dev)
-    step = make_batched_lio_step(cfg, DENSE_LANES)
+    state = make_batched_lio_state(cfg, lanes, dev)
+    step, eager_body, compared = make_batched_lio_step(cfg, lanes), batched_lio_body(cfg, lanes), {}
+    kind = "grouped_apply_dense" if dense else "grouped_apply"
+    before = (ga.DENSE_LAUNCHES if dense else ga.LAUNCHES, ac.LAUNCHES)
     ga.apply_grouped_updates = held
     try:
-        for inp in lane_scans(dev, DENSE_LANES, DENSE_LANES_STEPS):
+        for k, inp in enumerate(lane_scans(dev, lanes, steps)):
+            pre = tree_clone(state)
             state, res = step(state, inp)
+
+            def eager():
+                active["on"] = True
+                try:
+                    return eager_body(pre, inp)
+                finally:
+                    active["on"] = False
+            compared[k] = graph_vs_eager((state, res), without_launches(eager))
+            compared[k]["spawned"] = bool((state.frontend.submaps.num_created
+                                           > pre.frontend.submaps.num_created).any())
+            compared[k]["finished"] = bool((res.scan.finished_submap >= 0).any())
     finally:
-        ga.apply_grouped_updates = dense
+        ga.apply_grouped_updates = entry
+    launches = {kind: (ga.DENSE_LAUNCHES if dense else ga.LAUNCHES) - before[0],
+                "affine_chain": ac.LAUNCHES - before[1]}
+    check(launches == {kind: 2 * steps, "affine_chain": steps},
+          f"phase 11: {tag} launched {launches} over {steps} compiled steps")
+    held_steps = check_held(tag, compared)
+    counts = check_graph_counts(tag, step.counts(), steps)
     sm = state.frontend.submaps
-    spawned = bool((sm.num_created >= 2).all())
-    check(len(calls) == 2 * DENSE_LANES_STEPS, f"phase 11: {len(calls)} K1 dense calls for {DENSE_LANES_STEPS} steps")
-    check(all(eq and d == w == 0 for eq, d, w in calls), f"phase 11: K1 dense calls vs plain {calls}")
-    check(spawned and int(sm.dense_dropped.sum()) == 0, "phase 11: dense lanes spawned, no drops")
-    print(f"batched dense: B={DENSE_LANES}, {DENSE_LANES_STEPS} steps across a spawn: {len(calls)} K1 dense calls "
-          f"(2 per step) bit-identical to plain on a CPU copy of {sm.high_values.numel()} + "
-          f"{sm.low_values.numel()} cells", flush=True)
-    return {"lanes": DENSE_LANES, "steps": DENSE_LANES_STEPS, "k1_dense_calls": len(calls)}
+    drops = int(sm.dense_dropped.sum()) + sum(int(b.dropped.sum()) for b in (sm.high_brick, sm.low_brick)
+                                             if b is not None)
+    spawn = [k for k, h in compared.items() if h["spawned"]]
+    finished = [k for k, h in compared.items() if h["finished"]]
+    check(bool((sm.num_created >= 2).all()) and (finished or not finish) and drops == 0,
+          f"phase 11: {tag}: every lane spawned (at steps {spawn}), submaps finished at steps {finished}, "
+          f"drops {drops}")
+    if dense:
+        check(len(calls) == 2 * steps, f"phase 11: {len(calls)} K1 dense calls for {steps} steps")
+        check(all(eq and d == w == 0 for eq, d, w in calls), f"phase 11: K1 dense calls vs plain {calls}")
+    shown = (f"{len(calls)} K1 dense calls of the eager steps (2 per step) bit-identical to plain on a CPU "
+             f"copy of {sm.high_values.numel()} + {sm.low_values.numel()} cells" if dense
+             else "K1 brick 2 launches per step")
+    print(f"{tag}: B={lanes}, {steps} compiled steps across every lane's spawn (at steps {spawn}; submaps "
+          f"finished at steps {finished}), each held against the eager step: {shown}", flush=True)
+    return launches, {"lanes": lanes, "steps": steps, "k1_dense_calls": len(calls), "spawn_steps": spawn,
+                      "finish_steps": finished,
+                      "graph_vs_eager": held_steps, "compiled_step": counts}
+
+
+def batched_dense(ga, ac, dev):
+    """Phase 11 (c): bench_e2e's dense grids at B = DENSE_LANES across a
+    spawn, through the compiled batched step (`batched_held`, K1's dense
+    entry held against plain)."""
+    cfg = batched_config(E2E_OVERRIDES, DENSE_LANES,
+                         {"dense_apply_groups": E2E_OVERRIDES["trajectory_builder"]["submaps"]["dense_apply_groups"]},
+                         num_range_data=DENSE_LANES_RANGE_DATA).trajectory_builder
+    return batched_held(ga, ac, dev, "batched dense", cfg, DENSE_LANES, DENSE_LANES_STEPS, dense=True)
+
+
+def batched_brick(ga, ac, dev):
+    """Phase 11 (d): (a)'s bench config (brick grids) at the largest B
+    across a spawn, num_range_data cut as (b)'s, through the compiled
+    batched step (`batched_held`)."""
+    lanes = max(BATCHES)
+    cfg = batched_config(BENCH_OVERRIDES, lanes, SPAWN_CAPACITIES,
+                         num_range_data=LANES_RANGE_DATA).trajectory_builder
+    return batched_held(ga, ac, dev, "batched brick", cfg, lanes, BRICK_LANES_STEPS, dense=False, finish=True)
 
 
 def check_batched(ga, ac, dev, single_rate):
@@ -2136,12 +2573,16 @@ def check_batched(ga, ac, dev, single_rate):
     t1 = time.perf_counter()
     lanes = batched_lanes(dev)
     t2 = time.perf_counter()
-    dense = batched_dense(ga, dev)
+    dense_launches, dense = batched_dense(ga, ac, dev)
+    t3 = time.perf_counter()
+    brick_launches, brick = batched_brick(ga, ac, dev)
     seconds = time.perf_counter() - t0
     print(f"phase 11: {seconds:.1f} s (aim {PHASE11_AIM_S:.0f} s; (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
-          f"(c) {t0 + seconds - t2:.1f})", flush=True)
-    return {"grouped_apply": k1, "affine_chain": k2}, {"scaling": rows, "lanes": lanes, "dense": dense,
-                                                        "seconds": seconds}
+          f"(c) {t3 - t2:.1f}, (d) {t0 + seconds - t3:.1f})", flush=True)
+    return ({"grouped_apply": k1 + brick_launches["grouped_apply"],
+             "affine_chain": k2 + dense_launches["affine_chain"] + brick_launches["affine_chain"],
+             "grouped_apply_dense": dense_launches["grouped_apply_dense"]},
+            {"scaling": rows, "lanes": lanes, "dense": dense, "brick": brick, "seconds": seconds})
 
 
 def timed_host_ms(fn, repeats=REPEATS):
@@ -2219,6 +2660,7 @@ def check_cloud(ga, ac, dev, resumed, tmp):
         check(up.dead_letters == [] and up.num_batches_sent >= 1,
               f"phase 12: uploader batches {up.num_batches_sent}, dead letters {len(up.dead_letters)}")
         check(stepped == len(scans), f"phase 12: C stepped {stepped} of {len(scans)} scans")
+        cloud_counts = check_graph_counts("cloud", c.step_counts(), stepped)
         check(launches["grouped_apply_dense"] == 2 * stepped and launches["affine_chain"] == stepped,
               f"phase 12: C launches {launches} for {stepped} steps")
 
@@ -2307,7 +2749,7 @@ def check_cloud(ga, ac, dev, resumed, tmp):
     return launches, {"frame_bytes": len(blob), "encode_ms": encode_ms, "decode_ms": decode_ms,
                       "served_s": served_s, "direct_s": resumed["b_seconds"], "ping_p50_ms": rtt,
                       "pings": len(rtts), "finish_s": finish_s, "bit_identical": exact, "pose_diff": worst,
-                      "batches": up.num_batches_sent, "seconds": seconds}
+                      "batches": up.num_batches_sent, "seconds": seconds, "compiled_step": cloud_counts}
 
 
 def check_loop_recall(ga, ac, dev):
@@ -2408,6 +2850,7 @@ def check_long_course(ga, ac, dev, tmp):
     keys = {"num_inter", "constraint_precision", "mean_constraint_t_err_m", "revisit_opportunities", "revisit_recall"}
     check(keys <= set(box["constraints"]), f"phase 13: evaluate_constraints lacks {keys - set(box['constraints'])}")
     stepped = len(box["results"])
+    box["compiled_step"] = check_graph_counts("long course", graphs_counts(steps), steps["n"])
     check(launches["affine_chain"] == steps["n"] == stepped > 0,
           f"phase 13: long course K2 {launches['affine_chain']} launches for {steps['n']} steps, {stepped} results")
     check(launches["grouped_apply"] == launches["grouped_apply_dense"] == 0,
@@ -2426,7 +2869,8 @@ def check_long_course(ga, ac, dev, tmp):
     return launches["affine_chain"], {k: report.get(k) for k in (
         "num_scans", "num_nodes", "num_submaps", "wall_seconds", "scans_per_sec", "ate_rmse_m", "ate_rmse_aligned_m",
         "pre_optimization_ate_rmse_m", "pre_optimization_ate_rmse_aligned_m", "constraint_search_latency_s")} | {
-        "steps": stepped, "generate_seconds": gen_s, "finished_submaps": box["finished"], **box["constraints"]}
+        "steps": stepped, "generate_seconds": gen_s, "finished_submaps": box["finished"],
+        "compiled_step": box["compiled_step"], **box["constraints"]}
 
 
 def check_loop_tools(ga, ac, dev, tmp):
@@ -2462,8 +2906,11 @@ def main():
     k2 = check_affine_chain(ac, rng)
     t5 = time.perf_counter()
     print(f"phase 3: {t4 - t3:.1f} s; phase 4: {t5 - t4:.1f} s")
-    launches, scans_per_s = check_slice(ga, ac, get_device("cuda"))
-    print(f"phases 5-6: {time.perf_counter() - t5:.1f} s")
+    launches, scans_per_s, spawn = check_slice(ga, ac, get_device("cuda"))
+    t14 = time.perf_counter()
+    print(f"phases 5-6: {t14 - t5:.1f} s")
+    compiled_launches, compiled = check_compiled(ga, ac, get_device("cuda"), scans_per_s, launches, spawn)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s")
     t7 = time.perf_counter()
     k1d, dense_kernels = check_dense_grouped_apply(ga, rng)
     print(f"phase 7: {time.perf_counter() - t7:.1f} s")
@@ -2486,17 +2933,20 @@ def main():
         del resumed
         long_course_k2, loop_tools = check_loop_tools(ga, ac, get_device("cuda"), tmp)
     check("jax" not in sys.modules and "msgpack" not in sys.modules, "no jax or msgpack imported")
-    k2_launches = {"slice": launches["affine_chain"], "mapping": map_launches["affine_chain"],
+    k2_launches = {"slice": launches["affine_chain"], "compiled": compiled_launches["affine_chain"],
+                   "mapping": map_launches["affine_chain"],
                    "campus": campus_k2, "viral": viral_k2, "correlative": rtc_k2,
                    "checkpoint": io_launches["affine_chain"], "runner": runner_k2,
                    "batched": batched_launches["affine_chain"], "cloud": cloud_launches["affine_chain"],
                    "long_course": long_course_k2}
-    k1_launches = {"slice": launches["grouped_apply"], "batched": batched_launches["grouped_apply"]}
+    k1_launches = {"slice": launches["grouped_apply"], "compiled": compiled_launches["grouped_apply"],
+                   "batched": batched_launches["grouped_apply"]}
     dense_launches = {"mapping": map_launches["grouped_apply_dense"],
                       "checkpoint": io_launches["grouped_apply_dense"],
+                      "batched": batched_launches["grouped_apply_dense"],
                       "cloud": cloud_launches["grouped_apply_dense"]}
 
-    print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "mapping": mapping,
+    print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "compiled": compiled, "mapping": mapping,
                       "campus": campus, "viral": viral, "correlative": correlative, "io": io,
                       "phase10_seconds": phase10_s, "batched": batched, "cloud": cloud, "loop_tools": loop_tools,
                       "dense_kernels_per_call": dense_kernels, "empty_launch_graph_ms": launch_floor,

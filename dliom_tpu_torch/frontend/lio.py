@@ -7,16 +7,26 @@ The submap banks inside the state are updated in place by each step (the
 JAX package donates them to the same effect); every other field is new.
 The IMU bridge and the window stage run under `record_function` spans
 (lio.preintegrate, lio.window) beside the frontend's.
+
+`lio_step` runs eagerly, as the JAX `lio_step` is not jitted either. Its
+compiled forms are `make_jit_lio_step` (one CUDA graph replay per scan) and
+`make_jit_lio_chunk` (one replay per chunk of scans), `common/graph.py`'s
+`StepGraph` over the same step (it has no host read: the LM runs its fixed
+trip); `run_lio_chunk` is the eager loop.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 from torch.profiler import record_function
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from dliom_tpu_torch.common.config import TrajectoryBuilderConfig
+from dliom_tpu_torch.common.device import constant
+from dliom_tpu_torch.common.graph import StepGraph
 from dliom_tpu_torch.frontend.local_trajectory_builder import (
     FrontendState,
     ScanInput,
@@ -148,7 +158,7 @@ def lio_step(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig) -
     if cfg.enable_gravity_factor:
         grav_dir, grav_ok = _window_gravity(state.window, cfg)
     else:
-        grav_dir = torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32, device=dev)
+        grav_dir = constant([0.0, 0.0, -1.0], device=dev)
         grav_ok = torch.zeros((), dtype=torch.bool, device=dev)
 
     def fuse(pose_estimate: Rigid3):
@@ -179,10 +189,61 @@ def lio_step(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig) -
 
 def run_lio_chunk(state: LioState, scans: Sequence[LioScanInput],
                   cfg: TrajectoryBuilderConfig) -> Tuple[LioState, List[LioResult]]:
-    """Run `lio_step` over consecutive scans (the port's counterpart of
-    make_jit_lio_chunk: eager PyTorch needs no compiled chunk)."""
+    """Run the eager `lio_step` over consecutive scans, one call each (the
+    compiled chunk is `make_jit_lio_chunk`)."""
     results = []
     for scan in scans:
         state, res = lio_step(state, scan, cfg)
         results.append(res)
     return state, results
+
+
+def bank_leaves(state: LioState) -> List[torch.Tensor]:
+    """The grid banks of a (one- or B-lane) state: the tensors a step
+    updates in place, which a compiled step keeps rather than copies."""
+    sm = state.frontend.submaps
+    leaves = tree_flatten([sm.high_values, sm.low_values, sm.high_brick, sm.low_brick])[0]
+    return [x for x in leaves if x is not None]
+
+
+def stack_results(results: Sequence):
+    """Results of consecutive steps stacked on a new leading axis."""
+    flat = [tree_flatten(r) for r in results]
+    spec = flat[0][1]
+    return tree_unflatten([None if xs[0] is None else torch.stack(xs)
+                           for xs in zip(*(leaves for leaves, _ in flat))], spec)
+
+
+def chunk_body(step, chunk: int):
+    """`step(state, scan)` over `chunk` scans stacked on a leading axis:
+    (state, scans) -> (state, stacked results)."""
+
+    def run(state, scans):
+        n = tree_flatten(scans)[0][0].shape[0]
+        if n != chunk:
+            raise ValueError(f"chunk of {chunk} steps given {n} scans")
+        results = []
+        for i in range(chunk):
+            state, res = step(state, type(scans)(*(x[i] for x in scans)))
+            results.append(res)
+        return state, stack_results(results)
+
+    return run
+
+
+def make_jit_lio_step(cfg: TrajectoryBuilderConfig) -> StepGraph:
+    """Compiled LIO step: `fn(state, inp) -> (state, result)`, `lio_step`
+    captured into one CUDA graph and replayed per scan
+    on a CUDA state (eager through the same buffers on a CPU state). The
+    banks update in place and the returned state and result are the
+    graph's buffers (`common/graph.py`), so the JAX package's split/join
+    donation plumbing has no counterpart."""
+    return StepGraph(functools.partial(lio_step, cfg=cfg), adopt=bank_leaves)
+
+
+def make_jit_lio_chunk(cfg: TrajectoryBuilderConfig, chunk: int) -> StepGraph:
+    """Compiled multi-scan step: `fn(state, scans) -> (state, results)`
+    over a LioScanInput whose leaves carry a leading (chunk, ...) axis,
+    with the LioResults stacked the same way; one graph of `chunk` step
+    bodies, so one replay per chunk (the JAX `lax.scan` in one dispatch)."""
+    return StepGraph(chunk_body(functools.partial(lio_step, cfg=cfg), chunk), adopt=bank_leaves)

@@ -30,6 +30,7 @@ import torch
 from torch.profiler import record_function
 
 from dliom_tpu_torch.common.config import TrajectoryBuilderConfig
+from dliom_tpu_torch.common.device import constant
 from dliom_tpu_torch.imu.window_optimizer import tree_where
 from dliom_tpu_torch.mapping import motion_filter as mf
 from dliom_tpu_torch.mapping.submap import (
@@ -165,7 +166,7 @@ def filter_scan(prev_pose: Rigid3, scan: ScanInput, cfg: TrajectoryBuilderConfig
     # 2. deskew: per-hit pose = prev_pose * slerp(s, relative_prediction)
     s = torch.clamp((cfg.scan_period + scan.times) / cfg.scan_period, 0.0, 1.0)
     rel = scan.relative_prediction
-    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=torch.float32, device=dev).expand(n, 4)
+    ident = constant([1.0, 0.0, 0.0, 0.0], device=dev).expand(n, 4)
     hit_poses = Rigid3(quat_slerp(ident, rel.rotation.expand(n, 4), s), s[:, None] * rel.translation)
     hits_local = prev_pose.apply(hit_poses.apply(scan.points))
     origins_local = prev_pose.apply(hit_poses.apply(torch.zeros_like(scan.points)))

@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from dliom_tpu_torch.common.device import constant
 from dliom_tpu_torch.ops.segment import segment_sum
 from dliom_tpu_torch.transform.rigid import (
     Rigid3,
@@ -61,8 +62,8 @@ def static_initialize(accs: torch.Tensor, gyrs: torch.Tensor, mask: torch.Tensor
 def tangent_basis(g0: torch.Tensor) -> torch.Tensor:
     """(3, 2) basis of the tangent plane at direction g0 (TangentBasis)."""
     a = g0 / torch.clamp(_norm(g0), min=1e-12)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=g0.dtype, device=g0.device)
-    ez = torch.tensor([0.0, 0.0, 1.0], dtype=g0.dtype, device=g0.device)
+    ex = constant([1.0, 0.0, 0.0], g0.dtype, g0.device)
+    ez = constant([0.0, 0.0, 1.0], g0.dtype, g0.device)
     tmp = torch.where(torch.abs(a[2]) > 1.0 - 1e-6, ex, ez)
     b = tmp - a * torch.dot(a, tmp)
     b = b / torch.clamp(_norm(b), min=1e-12)

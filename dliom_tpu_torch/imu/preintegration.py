@@ -17,10 +17,12 @@ import torch
 from torch.func import vmap
 
 from dliom_tpu_torch.common.config import ImuConfig
+from dliom_tpu_torch.common.device import constant
 from dliom_tpu_torch.imu.affine_chain import affine_chain
 from dliom_tpu_torch.transform.rigid import (
     Rigid3,
     quat_from_axis_angle,
+    quat_identity,
     quat_multiply,
     quat_normalize,
     quat_rotate,
@@ -48,7 +50,7 @@ def make_preintegrated(ba, bg, acc0, gyr0) -> Preintegrated:
     f32 = dict(dtype=torch.float32, device=dev)
     return Preintegrated(
         delta_p=torch.zeros(3, **f32),
-        delta_q=torch.tensor([1.0, 0.0, 0.0, 0.0], **f32),
+        delta_q=quat_identity(device=dev),  # a state leaf: its own tensor, not the shared constant
         delta_v=torch.zeros(3, **f32),
         jacobian=torch.eye(15, **f32),
         covariance=torch.zeros(15, 15, **f32),
@@ -63,10 +65,9 @@ def make_preintegrated(ba, bg, acc0, gyr0) -> Preintegrated:
 
 def noise_matrix(cfg: ImuConfig, device=None) -> torch.Tensor:
     """18x18 process noise: [acc_n, gyr_n, acc_n, gyr_n, ba_w, bg_w]^2."""
-    d = torch.tensor(
+    d = constant(
         [cfg.acc_noise] * 3 + [cfg.gyr_noise] * 3 + [cfg.acc_noise] * 3
         + [cfg.gyr_noise] * 3 + [cfg.acc_bias_noise] * 3 + [cfg.gyr_bias_noise] * 3,
-        dtype=torch.float32,
         device=device,
     )
     return torch.diag(d * d)
@@ -187,7 +188,7 @@ def _chain_inputs(pre: Preintegrated, dts, accs, gyrs, mask, noise):
     # 1. quaternion chain: prefix product of the per-step increments
     un_gyr = 0.5 * (gyr_prev + gyrs) - bg
     dq_steps = quat_from_axis_angle(un_gyr * dt[:, None])
-    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dq_steps.dtype, device=dq_steps.device)
+    ident = constant([1.0, 0.0, 0.0, 0.0], dq_steps.dtype, dq_steps.device)
     steps = torch.where(mask[:, None], dq_steps, ident)
     q_all = quat_normalize(quat_multiply(pre.delta_q[None], _prefix_quat_product(steps)))
     q_final = q_all[-1]
@@ -256,7 +257,7 @@ class NavState(NamedTuple):
 
 def predict(state: NavState, pre: Preintegrated, gravity: float) -> NavState:
     """Forward prediction with world gravity (0, 0, -gravity)."""
-    g = torch.tensor([0.0, 0.0, -gravity], dtype=torch.float32, device=pre.dt.device)
+    g = constant([0.0, 0.0, -gravity], device=pre.dt.device)
     dt = pre.dt
     rot = state.rotation
     return NavState(

@@ -18,6 +18,7 @@ import torch
 from torch.func import jacfwd
 
 from dliom_tpu_torch.common.config import ImuConfig
+from dliom_tpu_torch.common.device import constant
 from dliom_tpu_torch.imu.preintegration import NavState, Preintegrated, bias_corrected_deltas
 from dliom_tpu_torch.mapping.brick_grid import _take
 from dliom_tpu_torch.transform.rigid import (
@@ -84,8 +85,8 @@ def make_window(w: int, initial: NavState, ba, bg, cfg: ImuConfig) -> WindowStat
     ba = ba.to(torch.float32)
     bg = bg.to(torch.float32)
     qs = initial.rotation.repeat(w, 1)
-    prior_sigmas = torch.tensor(
-        [cfg.prior_pose_noise] * 6 + [cfg.prior_vel_noise] * 3 + [cfg.prior_bias_noise] * 6, **f32)
+    prior_sigmas = constant(
+        [cfg.prior_pose_noise] * 6 + [cfg.prior_vel_noise] * 3 + [cfg.prior_bias_noise] * 6, device=dev)
     return WindowState(
         q=qs,
         p=initial.position.repeat(w, 1),
@@ -97,14 +98,14 @@ def make_window(w: int, initial: NavState, ba, bg, cfg: ImuConfig) -> WindowStat
         obs_drift=torch.zeros(w, dtype=torch.bool, device=dev),
         obs_valid=torch.zeros(w, dtype=torch.bool, device=dev),
         pre_p=torch.zeros(w, 3, **f32),
-        pre_q=torch.tensor([1.0, 0.0, 0.0, 0.0], **f32).repeat(w, 1),
+        pre_q=constant([1.0, 0.0, 0.0, 0.0], device=dev).repeat(w, 1),
         pre_v=torch.zeros(w, 3, **f32),
         pre_jac=torch.eye(15, **f32).repeat(w, 1, 1),
         pre_sqrt_info=torch.eye(9, **f32).repeat(w, 1, 1),
         pre_ba=ba.repeat(w, 1),
         pre_bg=bg.repeat(w, 1),
         pre_dt=torch.zeros(w, **f32),
-        grav_dir=torch.tensor([0.0, 0.0, 1.0], **f32).repeat(w, 1),
+        grav_dir=constant([0.0, 0.0, 1.0], device=dev).repeat(w, 1),
         grav_valid=torch.zeros(w, dtype=torch.bool, device=dev),
         prior_sqrt_info=torch.diag(1.0 / prior_sigmas),
         prior_q=initial.rotation.clone(),
@@ -140,7 +141,7 @@ def _states_apply_delta(state: WindowState, delta: torch.Tensor) -> WindowState:
 
 def _imu_residuals(state: WindowState, gravity: float, bias_sigmas) -> torch.Tensor:
     """(W-1, 15) IMU residuals between keys i-1 and i, i = 1..W-1."""
-    g = torch.tensor([0.0, 0.0, -gravity], dtype=torch.float32, device=state.q.device)
+    g = constant([0.0, 0.0, -gravity], device=state.q.device)
     qi, pi, vi, bai, bgi = state.q[:-1], state.p[:-1], state.v[:-1], state.ba[:-1], state.bg[:-1]
     qj, pj, vj, baj, bgj = state.q[1:], state.p[1:], state.v[1:], state.ba[1:], state.bg[1:]
     dt = state.pre_dt[1:]
@@ -173,7 +174,7 @@ def _pose_prior_residuals(state: WindowState, cfg: ImuConfig) -> torch.Tensor:
 
 def _gravity_residuals(state: WindowState, cfg: ImuConfig) -> torch.Tensor:
     """(W, 3) gravity attitude factors (gravity_factor.cc:10-31)."""
-    b_ref = torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32, device=state.q.device)
+    b_ref = constant([0.0, 0.0, -1.0], device=state.q.device)
     predicted = quat_rotate(quat_remove_yaw(state.q), b_ref)
     err = _cross(predicted, state.grav_dir)
     return torch.where(state.grav_valid[:, None], err / cfg.prior_gravity_noise, 0.0)
@@ -251,9 +252,9 @@ def _shift_window(state: WindowState) -> WindowState:
 def _drop_oldest(state: WindowState, cfg: ImuConfig) -> WindowState:
     """Slide the window, anchoring the new head at its current estimate."""
     state = _shift_window(state)
-    sig = torch.tensor(
+    sig = constant(
         [ANCHOR_POSE_SIGMA] * 6 + [ANCHOR_VEL_SIGMA] * 3 + [cfg.prior_bias_noise] * 6,
-        dtype=torch.float32, device=state.q.device)
+        device=state.q.device)
     return state._replace(
         prior_sqrt_info=torch.diag(1.0 / sig),
         prior_q=state.q[0], prior_p=state.p[0], prior_v=state.v[0],

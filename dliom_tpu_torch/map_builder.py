@@ -8,8 +8,22 @@ Per trajectory, IMU samples buffer on the host between scans; the first
 (InitializeStatic, local_trajectory_builder_3d.cc:203-229), or, with
 `enable_ndt_initialization`, the scans and IMU samples feed the dynamic
 initializer (InitilizeByNDT, :231-330) until it aligns a moving window;
-afterwards every scan runs `lio_step` on `device`, and its results flow to
-`PoseGraph.add_node`.
+afterwards every scan runs the LIO step on `device`, and its results flow
+to `PoseGraph.add_node`.
+
+The compiled step. Each trajectory steps through its own
+`make_jit_lio_step`: on the card a CUDA graph bound to its banks (the
+graphs share one memory pool), whose first step after initialization is
+the warm-up, eager, and every later one a replay; on the CPU the same
+static buffers and copies with the body run eagerly. Each scan's input is
+written into one pinned host buffer and goes to the graph's static input
+in one non-blocking copy. The graph's state and result are overwritten by the
+next replay, so whatever outlives a step is copied or read before the next
+one is queued: the fetch below packs its fields into a new tensor, the
+finished grids are compressed into new tensors, and a checkpoint copies
+the state to the host. A restored checkpoint makes new trajectory
+builders, so their graphs capture again at their first step; a state put
+into `_lio` otherwise is copied into the graph's buffers at the next step.
 
 One device-to-host copy per scan: every field the host bookkeeping needs
 is packed into one float32 tensor and copied once. With `pipeline_depth=1`
@@ -21,7 +35,7 @@ Captured grids. The submap banks are updated in place, and the step after
 a submap finishes recycles that submap's slot. So the finished submap's
 grids are captured — compressed into new tensors (`compress` for a dense
 grid, `compress_brick` for a brick grid) — from the post-step state of the
-scan that finished it, before the next `lio_step` is queued. Under
+scan that finished it, before the next step is queued. Under
 pipelining the pending scan's fetch is therefore read at the start of the
 next scan, before its step, rather than after it as in the JAX package.
 
@@ -44,7 +58,8 @@ from dliom_tpu_torch.backend.compression import compress
 from dliom_tpu_torch.backend.pose_graph import NodeRecord, PoseGraph
 from dliom_tpu_torch.common.config import EngineConfig
 from dliom_tpu_torch.common.device import get_device
-from dliom_tpu_torch.frontend.lio import LioScanInput, LioState, lio_step, make_lio_state
+from dliom_tpu_torch.common.graph import sum_counts
+from dliom_tpu_torch.frontend.lio import LioScanInput, LioState, make_jit_lio_step, make_lio_state
 from dliom_tpu_torch.imu import preintegration as pre
 from dliom_tpu_torch.imu.dynamic_initializer import DynamicInitializer
 from dliom_tpu_torch.imu.initialization import static_initialize
@@ -110,6 +125,7 @@ class _TrajectoryBuilder:
                           if self.tb.enable_ndt_initialization else None)
         self._synchronizer = RangeDataSynchronizer(range_sensor_ids, self.tb.scan_period)
         self._lio: Optional[LioState] = None
+        self._step = None  # the compiled step (make_jit_lio_step), made at the first step
         self._initialized = False
         self._init_acc: List[np.ndarray] = []
         self._init_gyr: List[np.ndarray] = []
@@ -291,23 +307,14 @@ class _TrajectoryBuilder:
         # would quantize the motion filter's dt to zero)
         if self._time_origin is None:
             self._time_origin = float(time)
-        dev = self.device
-        inp = LioScanInput(
-            time=torch.tensor(time - self._time_origin, dtype=torch.float32, device=dev),
-            points=torch.from_numpy(cloud.points).to(dev),
-            times=torch.from_numpy(cloud.times).to(dev),
-            mask=torch.from_numpy(cloud.mask).to(dev),
-            imu_dts=torch.from_numpy(dts).to(dev),
-            imu_acc=torch.from_numpy(accs).to(dev),
-            imu_gyr=torch.from_numpy(gyrs).to(dev),
-            imu_mask=torch.from_numpy(imask).to(dev),
-        )
+        arrays = LioScanInput(np.float32(time - self._time_origin), cloud.points, cloud.times,
+                              cloud.mask, dts, accs, gyrs, imask)
         pipelined = self.parent._pipeline_depth > 0
         # the pending scan is read (and its finished grids captured) before
         # this step can recycle their slot
         prev = self._read_pending() if pipelined else None
         t0 = _wall.perf_counter()
-        self._lio, res = lio_step(self._lio, inp, self.tb)
+        self._lio, res = self._lio_step(arrays)
         self.parent.pose_graph._phase("ingest_dispatch", _wall.perf_counter() - t0)
         fetch = self._start_fetch(res, non_blocking=pipelined)
         if pipelined:
@@ -315,6 +322,18 @@ class _TrajectoryBuilder:
             return self._complete_scan(*prev) if prev is not None else None
         host = fetch.read()
         return self._complete_scan(time, host, self._capture_grids(host), t0)
+
+    def _lio_step(self, arrays: LioScanInput):
+        """One LIO step on the host arrays of a scan, through the compiled
+        step (module docstring)."""
+        if self._step is None:
+            inp = LioScanInput(*(torch.from_numpy(np.asarray(a)).to(self.device) for a in arrays))
+            self._step = make_jit_lio_step(self.tb)
+            return self._step(self._lio, inp)
+        self._step.load_state(self._lio)
+        self._step.stage_input(arrays)
+        self._step.step()
+        return self._step.state, self._step.result
 
     def _start_fetch(self, res, non_blocking: bool) -> _Fetch:
         submaps = self._lio.frontend.submaps
@@ -678,6 +697,11 @@ class MapBuilder:
     @property
     def num_trajectory_builders(self) -> int:
         return len(self._trajectories)
+
+    def step_counts(self) -> Dict[str, int]:
+        """The compiled steps' steps, warm-ups, captures and replays, summed
+        over the trajectories."""
+        return sum_counts(t._step for t in self._trajectories.values())
 
 
 def map_builder_from_state(path: str, config: EngineConfig, pure_localization: bool = True,

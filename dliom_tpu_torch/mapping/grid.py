@@ -13,6 +13,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from dliom_tpu_torch.common.device import constant
 from dliom_tpu_torch.mapping import probability as pv
 
 GRID_DTYPE = torch.int16
@@ -66,7 +67,7 @@ _CORNERS = np.asarray(
 
 
 def _corners_like(t: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(_CORNERS, device=t.device)
+    return constant(_CORNERS.tolist(), torch.int32, t.device)
 
 
 def _corner_weights(s: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from dliom_tpu_torch.common.device import constant
+
 MIN_PROBABILITY = 0.1
 MAX_PROBABILITY = 1.0 - MIN_PROBABILITY
 UNKNOWN_VALUE = 0
@@ -50,9 +52,7 @@ def apply_odds(value: torch.Tensor, update_odds: float) -> torch.Tensor:
     """One odds-multiplication update of cell value(s), without the update
     marker (ComputeLookupTableToApplyOdds, probability_values.cc:74-84)."""
     known_p = probability_from_odds(update_odds * odds(value_to_probability(value)))
-    unknown_p = probability_from_odds(
-        torch.tensor(update_odds, dtype=torch.float32, device=value.device)
-    )
+    unknown_p = probability_from_odds(constant(update_odds, torch.float32, value.device))
     new_p = torch.where(value == UNKNOWN_VALUE, unknown_p, known_p)
     return probability_to_value(clamp_probability(new_p))
 

@@ -20,7 +20,9 @@ other and with the JAX package's float32 arithmetic.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 
 import torch
 
@@ -38,8 +40,10 @@ DENSE_CELLS_PER_GROUP = 16384
 LAUNCHES = 0
 # Of those, launches through the dense-bank entry `apply_grouped_updates`.
 DENSE_LAUNCHES = 0
-# The dense kernel's look-back scratch, per (device, stream).
+# The dense kernel's look-back scratch, per (device, stream), for eager calls.
 _LOOKBACK: dict = {}
+# The scratch owner of the calls this thread makes (`lookback_owner`).
+_OWNER = threading.local()
 
 
 def dense_bank_size(num_cells: int, num_slots: int, apply_groups: int) -> int:
@@ -88,11 +92,12 @@ def build_group_tables(group_of: torch.Tensor, valid: torch.Tensor, num_groups: 
     return rows, bounds[:num_groups], bounds[1:]
 
 
-@functools.lru_cache(maxsize=8)
+@functools.cache
 def update_tables(hit_odds: float, miss_odds: float, device: torch.device):
     """int16 (32768,) hit and miss update tables on `device`. Made on the
     host with the plain float32 arithmetic, then copied, so their bits do
-    not depend on the device."""
+    not depend on the device. Never evicted: a captured CUDA graph reads
+    them at their address on every replay."""
     hit = pv.compute_update_table(hit_odds).to(torch.int16).to(device)
     miss = pv.compute_update_table(miss_odds).to(torch.int16).to(device)
     return hit, miss
@@ -221,13 +226,46 @@ def apply_grouped_updates_plain(pool_flat, sorted_keys, *, num_groups: int, cell
     return pool_flat, dropped
 
 
+class LookbackScratch:
+    """Look-back scratch that one owner (a CUDA graph) keeps for the dense
+    calls it makes, eager and captured: a captured call's scratch must be
+    its graph's, allocated before the capture, or an eager call on the
+    capture stream could share it with a replay running on another. It
+    must live as long as any graph that captured a call with it."""
+
+    def __init__(self):
+        self.buf = None
+
+
+@contextlib.contextmanager
+def lookback_owner(scratch: LookbackScratch):
+    """Dense calls this thread makes inside take their look-back scratch
+    from `scratch` (grown outside a capture only)."""
+    prev = getattr(_OWNER, "scratch", None)
+    _OWNER.scratch = scratch
+    try:
+        yield scratch
+    finally:
+        _OWNER.scratch = prev
+
+
 def _lookback_scratch(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
-    """The dense kernel's look-back scratch for `stream` on `device`, at
-    least `tiles` status words: zeroed once when allocated (or grown), then
-    left ready for the next call by each call's last tile. Calls on one
-    stream run one after another, so they share it; each stream has its
-    own."""
+    """The dense kernel's look-back scratch, at least `tiles` status words:
+    zeroed once when allocated (or grown), then left ready for the next call
+    by each call's last tile. Under `lookback_owner` it is the owner's;
+    else the one kept for `stream` on `device`. Calls on one stream run one
+    after another, so they share it; each stream has its own. A call being
+    captured takes its owner's scratch, which must hold `tiles` already."""
     need = 4 + 2 * tiles  # int32: ticket, finished, epoch, pad; 8 bytes a tile
+    owner = getattr(_OWNER, "scratch", None)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing and (owner is None or owner.buf is None or owner.buf.numel() < need):
+        raise RuntimeError("apply_grouped_updates captured without look-back scratch its graph "
+                           "owns: run the call once under lookback_owner(...) before the capture")
+    if owner is not None:
+        if owner.buf is None or owner.buf.numel() < need:
+            owner.buf = torch.zeros(need, dtype=torch.int32, device=device)
+        return owner.buf
     buf = _LOOKBACK.get((device, stream))
     if buf is None or buf.numel() < need:
         buf = torch.zeros(need, dtype=torch.int32, device=device)
@@ -246,7 +284,7 @@ def apply_grouped_updates(pool_flat, sorted_keys, *, num_groups: int, cells_per_
     `num_groups`, lost whole. CPU tensors take the plain version. On CUDA
     tensors one kernel launch applies the keys and counts `dropped` (the
     group ranks come from a look-back across tiles of keys, with scratch
-    kept per stream); the kernel relies on the keys being sorted, so each
+    kept per stream or by a `lookback_owner`); the kernel relies on the keys being sorted, so each
     cell's records are contiguous (`ops/grid_update.py::_insert_slots`
     sorts them)."""
     if pool_flat.device.type == "cpu":

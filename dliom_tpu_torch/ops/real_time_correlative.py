@@ -78,18 +78,22 @@ def _lattice(resolution: float, linear_search_window: float, angular_search_wind
     return np.asarray(ts, np.float32), np.asarray(aas, np.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@functools.cache
 def _candidates(resolution, linear_search_window, angular_search_window, max_scan_range,
-                max_angular_steps, translation_delta_cost_weight, rotation_delta_cost_weight):
-    """CPU tensors of the lattice: offsets (C, 3), rotations (C, 4) and
-    each candidate's damping (C,)."""
+                max_angular_steps, translation_delta_cost_weight, rotation_delta_cost_weight,
+                device=torch.device("cpu")):
+    """The lattice on `device`: offsets (C, 3), rotations (C, 4) and each
+    candidate's damping (C,), made on the CPU and copied once per device
+    (a step that reads them copies no host data after its first call).
+    Never evicted: a captured CUDA graph reads them at their address on
+    every replay."""
     off_t, off_aa = _lattice(resolution, linear_search_window, angular_search_window,
                              max_scan_range, max_angular_steps)
     off_t, off_q = torch.from_numpy(off_t), quat_from_axis_angle(torch.from_numpy(off_aa))
     angle = 2.0 * torch.arcsin(torch.clamp(_norm(off_q[:, 1:4]), 0.0, 1.0))
     damp = torch.exp(-(_norm(off_t) * translation_delta_cost_weight
                        + angle * rotation_delta_cost_weight) ** 2)
-    return off_t, off_q, damp
+    return tuple(x.to(device) for x in (off_t, off_q, damp))
 
 
 def match(
@@ -111,9 +115,9 @@ def match(
     `values`/`base`: a dense flat bank and its slot offset, or a BrickBank
     and its slot, as in the Ceres matcher."""
     dev = points.device
-    off_t, off_q, damp = (x.to(dev) for x in _candidates(
+    off_t, off_q, damp = _candidates(
         spec.resolution, linear_search_window, angular_search_window, max_scan_range,
-        max_angular_steps, translation_delta_cost_weight, rotation_delta_cost_weight))
+        max_angular_steps, translation_delta_cost_weight, rotation_delta_cost_weight, dev)
     n_valid = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
 
     def candidates(dt, dq):

@@ -111,12 +111,18 @@ def match(
     max_iterations: int = 12,
     grid_bases: Sequence | None = None,
     function_tolerance: float = 0.0,
+    host_exit: bool = False,
 ) -> ScanMatcherResult:
     """Refine `initial_pose` so the clouds (tracking frame) match the grids
     (submap frame); CeresScanMatcher3D::Match. `grid_bases`: per grid, the
     bank slot (brick grids) or flat offset (dense grids). For B lanes the
     pose is (B, ·), the clouds (B, N, ·), each base a (B,) tensor, and the
-    result's fields carry the lane axis."""
+    result's fields carry the lane axis. All `max_iterations` run, with
+    converged lanes frozen (the JAX while loop's result, with no host
+    read, so a CUDA graph captures it); `host_exit` stops the loop once
+    every lane has converged instead, on a host read per iteration, with
+    the same result (chip_smoke.py times both; the early exit is the
+    slower on the card)."""
     batched = initial_pose.rotation.dim() == 2
     if target_translation is None:
         target_translation = initial_pose.translation
@@ -150,11 +156,11 @@ def match(
     carry = _initial_carry(initial_pose, r0, jac0, initial_cost)
     if batched:
         carry, iterations = _lm_iterate(carry, r_and_jac, only_optimize_yaw, max_iterations,
-                                        function_tolerance, host_exit=True)
+                                        function_tolerance, host_exit=host_exit)
         return ScanMatcherResult(pose=carry[6], cost=carry[7], initial_cost=initial_cost,
                                  iterations=iterations)
     carry, iterations = _lm_iterate(_lanes(lambda x: x[None], carry), lane, only_optimize_yaw,
-                                    max_iterations, function_tolerance, host_exit=True)
+                                    max_iterations, function_tolerance, host_exit=host_exit)
     best = carry[6]
     return ScanMatcherResult(pose=Rigid3(best.rotation[0], best.translation[0]), cost=carry[7][0],
                              initial_cost=initial_cost, iterations=iterations[0])
@@ -221,7 +227,9 @@ def _lm_iterate(carry, r_and_jac, only_yaw: bool, max_iterations: int,
                torch.where(is_best, new_cost, best_cost))
         live = ~done
         if host_exit and b == 1:
-            carry = new  # the loop stops before its one lane could be frozen
+            # the loop stops before its one lane could be frozen; freezing
+            # it (host_exit False) gives the same carry and iterations
+            carry = new
         else:
             carry = _lanes(lambda n, o: torch.where(
                 live.reshape((-1,) + (1,) * (n.dim() - 1)), n, o), new, carry)

@@ -33,7 +33,7 @@ ported: the port runs on one card.
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence, Tuple
+from typing import Tuple
 
 import torch
 from torch.func import vmap
@@ -41,12 +41,15 @@ from torch.profiler import record_function
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from dliom_tpu_torch.common.config import TrajectoryBuilderConfig
-from dliom_tpu_torch.common.device import get_device
+from dliom_tpu_torch.common.device import constant, get_device
+from dliom_tpu_torch.common.graph import StepGraph
 from dliom_tpu_torch.frontend.lio import (
     LioResult,
     LioScanInput,
     LioState,
     _window_gravity,
+    bank_leaves,
+    chunk_body,
     fuse_window,
     imu_carry,
     make_lio_state,
@@ -299,7 +302,7 @@ def lio_lanes(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig):
     if cfg.enable_gravity_factor:
         grav_dir, grav_ok = _over_lanes(functools.partial(_window_gravity, cfg=cfg), state.window)
     else:
-        grav_dir = torch.tensor([0.0, 0.0, -1.0], dtype=torch.float32, device=dev).expand(b, 3)
+        grav_dir = constant([0.0, 0.0, -1.0], device=dev).expand(b, 3)
         grav_ok = torch.zeros(b, dtype=torch.bool, device=dev)
 
     def fuse(pose_estimate):
@@ -337,25 +340,16 @@ def batched_lio_body(cfg: TrajectoryBuilderConfig, batch: int):
     return run
 
 
-def make_batched_lio_step(cfg: TrajectoryBuilderConfig, batch: int):
-    """The multi-sequence LIO step; the banks are updated in place (the
-    JAX package donates them to the same effect)."""
-    return batched_lio_body(cfg, batch)
+def make_batched_lio_step(cfg: TrajectoryBuilderConfig, batch: int) -> StepGraph:
+    """The compiled multi-sequence LIO step (the JAX package jits it with
+    the state donated): one CUDA graph replay per batched step on the card,
+    the banks updated in place, state and results in the graph's buffers
+    (`frontend/lio.py::make_jit_lio_step`)."""
+    return StepGraph(batched_lio_body(cfg, batch), adopt=bank_leaves)
 
 
-def make_batched_lio_chunk(cfg: TrajectoryBuilderConfig, batch: int, chunk: int):
-    """`chunk` consecutive batched steps per call, over a sequence of
-    B-stacked scans (the port's counterpart of the JAX package's
-    `lax.scan`, as `frontend/lio.py::run_lio_chunk` is)."""
-    body = batched_lio_body(cfg, batch)
-
-    def run(state: LioState, scans: Sequence[LioScanInput]) -> Tuple[LioState, List[LioResult]]:
-        if len(scans) != chunk:
-            raise ValueError(f"chunk of {chunk} steps given {len(scans)} scans")
-        results = []
-        for scan in scans:
-            state, res = body(state, scan)
-            results.append(res)
-        return state, results
-
-    return run
+def make_batched_lio_chunk(cfg: TrajectoryBuilderConfig, batch: int, chunk: int) -> StepGraph:
+    """The compiled chunk of `chunk` batched steps, one replay per call:
+    scans' leaves carry a leading (chunk, B, ...) axis, and so do the
+    results (the JAX package's `lax.scan` in one dispatch)."""
+    return StepGraph(chunk_body(batched_lio_body(cfg, batch), chunk), adopt=bank_leaves)

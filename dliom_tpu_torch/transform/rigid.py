@@ -2,7 +2,7 @@
 
 A `Rigid3` NamedTuple of a unit quaternion ``(w, x, y, z)`` and a
 translation; every operation broadcasts over leading batch dimensions.
-float32 throughout, constants made on the input's device.
+float32 throughout, constants made once per device (`common/device.py::constant`).
 """
 
 from __future__ import annotations
@@ -13,11 +13,13 @@ from typing import NamedTuple
 import numpy as _np
 import torch
 
+from dliom_tpu_torch.common.device import constant
+
 _EPS = 1e-12
 
 
 def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=like.dtype, device=like.device)
+    return constant(values, like.dtype, like.device)
 
 
 def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -37,7 +39,7 @@ def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 
 def quat_identity(batch_shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
     q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
-    q[..., 0] = 1.0
+    q.select(-1, 0).fill_(1.0)  # a device fill: no host data, so a CUDA graph captures it
     return q
 
 

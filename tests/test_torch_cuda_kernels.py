@@ -291,8 +291,9 @@ def test_dense_table_edge_cases_match_plain(cuda_device, name):
 def test_dense_lookback_scratch_across_calls(cuda_device):
     """The dense kernel's look-back scratch lives on per stream, its epoch
     advanced by each call: calls of different tile counts, on the current
-    stream and on a side stream, and replays of one CUDA graph each match
-    the plain version."""
+    stream and on a side stream, and replays of one CUDA graph (whose calls
+    take scratch the graph owns, made by eager calls before the capture)
+    each match the plain version."""
     rng = np.random.default_rng(9)
     cpg, groups = 16384, 257
     kw = dict(num_groups=64, cells_per_group=cpg, hit_odds=0.55 / 0.45, miss_odds=0.49 / 0.51,
@@ -308,8 +309,12 @@ def test_dense_lookback_scratch_across_calls(cuda_device):
         assert torch.equal(k, p) and int(kd) == int(pd)
     works = [bank.clone() for _ in cases]
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        outs = [K1.apply_grouped_updates(w, keys, **kw)[1] for w, keys in zip(works, cases)]
+    owner = K1.LookbackScratch()  # lives as long as the graph
+    with K1.lookback_owner(owner):
+        for w, keys in zip(works, cases):
+            K1.apply_grouped_updates(w.clone(), keys, **kw)
+        with torch.cuda.graph(graph):
+            outs = [K1.apply_grouped_updates(w, keys, **kw)[1] for w, keys in zip(works, cases)]
     for replay in range(3):
         for w in works:
             w.copy_(bank)
@@ -318,6 +323,82 @@ def test_dense_lookback_scratch_across_calls(cuda_device):
         for w, keys, d in zip(works, cases, outs):
             p, pd = K1.apply_grouped_updates_plain(bank.clone(), keys, **kw)
             assert torch.equal(w, p) and int(d) == int(pd), replay
+
+
+def test_dense_captured_call_owns_its_scratch(cuda_device):
+    """A captured dense call takes look-back scratch its graph owns: its
+    replays on the current stream, with eager dense calls (per-stream
+    scratch) before and after each on the capture stream, running
+    alongside, all equal plain bit for bit; a capture without an owner
+    raises."""
+    rng = np.random.default_rng(10)
+    cpg, groups = 16384, 257
+    kw = dict(num_groups=64, cells_per_group=cpg, hit_odds=0.55 / 0.45, miss_odds=0.49 / 0.51,
+              dummy_group=groups - 1)
+    bank = torch.from_numpy(rng.integers(0, 32768, groups * cpg).astype(np.int16)).to(cuda_device)
+    captured, before, after = (_dense_keys(rng, t, n).to(cuda_device)
+                               for t, n in ((200, 49152), (90, 20000), (150, 30000)))
+    want = {name: K1.apply_grouped_updates_plain(bank.clone(), keys, **kw)
+            for name, keys in (("captured", captured), ("before", before), ("after", after))}
+    capture_stream = torch.cuda.Stream(cuda_device)
+    owner = K1.LookbackScratch()
+    work = bank.clone()
+    with K1.lookback_owner(owner):
+        K1.apply_grouped_updates(bank.clone(), captured, **kw)  # the scratch, before the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=capture_stream):
+            dropped = K1.apply_grouped_updates(work, captured, **kw)[1]
+    results = []
+    for _ in range(3):
+        banks = {name: bank.clone() for name in ("before", "after")}
+        work.copy_(bank)
+        torch.cuda.synchronize()
+        with torch.cuda.stream(capture_stream):
+            d_before = K1.apply_grouped_updates(banks["before"], before, **kw)[1]
+        graph.replay()
+        with torch.cuda.stream(capture_stream):
+            d_after = K1.apply_grouped_updates(banks["after"], after, **kw)[1]
+        torch.cuda.synchronize()
+        results += [(work, dropped, "captured"), (banks["before"], d_before, "before"),
+                    (banks["after"], d_after, "after")]
+        for got, d, name in results[-3:]:
+            assert torch.equal(got, want[name][0]) and int(d) == int(want[name][1]), name
+    stream_scratch = K1._LOOKBACK[(torch.device("cuda", torch.cuda.current_device()),
+                                   capture_stream.cuda_stream)]
+    assert owner.buf.data_ptr() != stream_scratch.data_ptr()
+    with pytest.raises(RuntimeError, match="look-back scratch"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=capture_stream):
+            K1.apply_grouped_updates(bank.clone(), captured, **kw)
+
+
+def test_captured_call_keeps_its_cached_tables(cuda_device):
+    """A captured K1 call reads the update tables of `update_tables`' cache
+    at their address on every replay. With more than 8 other keys made
+    between replays and freed memory written over, each replay still
+    equals plain bit for bit: the cache never evicts, and neither does the
+    correlative lattice's, which the compiled step reads the same way."""
+    from dliom_tpu_torch.ops import real_time_correlative as rtc
+
+    bank, rows, starts, ends, keys, fresh = (
+        x.to(cuda_device) for x in _grouped_case(np.random.default_rng(5), 64, 4096, 48))
+    kw = dict(cells_per_group=4096, hit_odds=0.57 / 0.43, miss_odds=0.47 / 0.53, fresh=fresh)
+    want = K1.apply_grouped_rows_plain(bank.clone(), rows, starts, ends, keys, **kw)
+    work = bank.clone()
+    K1.apply_grouped_rows(work.clone(), rows, starts, ends, keys, **kw)  # the tables, before the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        K1.apply_grouped_rows(work, rows, starts, ends, keys, **kw)
+    for replay in range(3):
+        for i in range(10):
+            K1.update_tables(1.1 + 0.01 * (10 * replay + i), 0.9, work.device)
+        scrub = [torch.full((32768,), -7, dtype=torch.int16, device=cuda_device) for _ in range(64)]
+        del scrub
+        work.copy_(bank)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(work, want), replay
+    assert K1.update_tables.cache_info().maxsize is None
+    assert rtc._candidates.cache_info().maxsize is None
 
 
 def test_dense_insert_cuda_matches_cpu(cuda_device):
@@ -511,3 +592,67 @@ def test_batched_step_launches(cuda_device):
         assert (K1.LAUNCHES - k1, K2.LAUNCHES - k2) == (4, 2)
         poses[lanes] = res.scan.local_pose.translation.cpu()
     torch.testing.assert_close(poses[4][0], poses[1][0], atol=2e-4, rtol=0)
+
+
+def test_compiled_step_replays_the_eager_step(cuda_device):
+    """`make_jit_lio_step` on the card at a small brick config: the first
+    call warms up and captures, each later call replays; every replay
+    equals the eager `lio_step` from the same pre-step state (integer state
+    and flags bit for bit, pose within 2e-3), and the launch counters count
+    the replays' K1 and K2 launches as the eager step's."""
+    from torch.utils._pytree import tree_map
+
+    from dliom_tpu_torch.common import graph as cg
+    from dliom_tpu_torch.frontend.lio import LioScanInput, lio_step, make_jit_lio_step, make_lio_state
+    from dliom_tpu_torch.imu.preintegration import NavState
+    from dliom_tpu_torch.io.synthetic import SyntheticWorld, corkscrew_trajectory
+    from dliom_tpu_torch.sensor.types import pad_point_cloud
+
+    cfg = load_config("basic", {"trajectory_builder": {
+        "scan_period": 0.1, "voxel_filter_size": 0.3, "enable_gravity_factor": False,
+        "submaps": {"high_resolution": 0.2, "low_resolution": 0.5, "num_range_data": 2,
+                    "use_brick_grid": True, "brick_dir_extent": 16, "brick_max_bricks": 4096,
+                    "brick_apply_groups": 512, "use_brick_grid_low": True, "low_brick_dir_extent": 8,
+                    "low_brick_max_bricks": 512, "low_brick_apply_groups": 256,
+                    "low_brick_apply_group_bricks": 8},
+        "max_filtered_points": 1024, "max_high_res_points": 256, "max_low_res_points": 256,
+        "max_imu_per_scan": 16, "window_size": 3, "gn_iterations": 2,
+        "ceres_scan_matcher": {"max_num_iterations": 4, "function_tolerance": 1e-3}}}).trajectory_builder
+    world = SyntheticWorld.create(num_beams=8, num_azimuths=200)
+    course = corkscrew_trajectory()
+    rng = np.random.default_rng(0)
+
+    def scan(i):
+        cloud = pad_point_cloud(*world.cast_scan(course[3 + i][1]), 2048)
+        acc = np.tile(np.array([0, 0, 9.80511], np.float32), (16, 1)) + rng.normal(0, 0.01, (16, 3))
+        return LioScanInput(
+            time=torch.tensor(0.1 * (i + 1), device=cuda_device),
+            **{k: torch.from_numpy(np.asarray(v)).to(cuda_device) for k, v in dict(
+                points=cloud.points, times=cloud.times, mask=cloud.mask,
+                imu_dts=np.full(16, 0.00625, np.float32), imu_acc=acc.astype(np.float32),
+                imu_gyr=rng.normal(0, 0.002, (16, 3)).astype(np.float32),
+                imu_mask=np.arange(16) < 14).items()})
+
+    clone = lambda tree: tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)  # noqa: E731
+    zero = torch.zeros(3, device=cuda_device)
+    state = make_lio_state(cfg, NavState.identity(cuda_device), zero, zero)
+    step = make_jit_lio_step(cfg)
+    for i in range(6):
+        inp = scan(i)
+        pre = clone(state)
+        with cg.cusolver():
+            eager_state, eager = lio_step(clone(pre), inp, cfg)
+        before = cg.launch_counts()
+        state, res = step(state, inp)
+        torch.cuda.synchronize()
+        replayed = {k: v - before[k] for k, v in cg.launch_counts().items()}
+        assert replayed == {"dliom_tpu_torch.ops.grouped_apply.LAUNCHES": 2, "dliom_tpu_torch.ops.grouped_apply.DENSE_LAUNCHES": 0,
+                            "dliom_tpu_torch.imu.affine_chain.LAUNCHES": 1}, (i, replayed)
+        for x, y in zip(torch.utils._pytree.tree_leaves(state), torch.utils._pytree.tree_leaves(eager_state)):
+            assert x.dtype.is_floating_point or torch.equal(x, y), i
+        for f in ("inserted", "finished_submap", "matcher_iterations", "num_hits", "insertion_submap_ids"):
+            assert torch.equal(getattr(res.scan, f), getattr(eager.scan, f)), (i, f)
+        torch.testing.assert_close(res.scan.local_pose.translation, eager.scan.local_pose.translation,
+                                   atol=2e-3, rtol=0)
+    assert step.counts() == {"steps": 6, "warmups": 1, "captures": 1, "replays": 5}
+    assert int(state.failures) == 0

@@ -6,15 +6,19 @@
 For each B, B sequences at the bench config (chip_smoke.py's
 BENCH_OVERRIDES: bench.py's build_config, 32768 raw points and 48 IMU
 samples per scan), each on the synthetic corkscrew from its own world
-offset, step in lockstep through `make_batched_lio_chunk`, with K1's
-capacities at chip_smoke.py's SPAWN_CAPACITIES times B (one call holds all
-lanes' groups, so no update drops): WARMUP steps, then MEASURE timed steps.
-One JSON line per B: `batch`, `aggregate_scans_per_sec`,
-`per_seq_scans_per_sec`, `scaling_vs_b1` (the per-sequence rate over the
-first B's), `launches_per_step` (device kernels per batched step, from
-torch.profiler over PROFILED steps after a warm-up cycle of as many; on
-the CPU, where ops run inline, the ATen operator calls) and `peak_mem_mib`
-(peak device memory; null on the CPU). --profile writes the last B's
+offset, step in lockstep in both forms, with K1's capacities at
+chip_smoke.py's SPAWN_CAPACITIES times B (one call holds all lanes'
+groups, so no update drops): the eager batched step (`batched_lio_body`,
+one call per step) and the compiled chunk (`make_batched_lio_chunk`, CHUNK
+steps per CUDA graph replay), each from its own fresh state, WARMUP steps
+and then MEASURE timed steps. One JSON line per B: `batch`,
+`aggregate_scans_per_sec`, `per_seq_scans_per_sec`, `scaling_vs_b1` (the
+per-sequence rate over the first B's) of the eager form and the same
+three with `compiled_` in front for the compiled one, `launches_per_step`
+(device kernels per eager batched step, from torch.profiler over PROFILED
+steps after a warm-up cycle of as many; on the CPU, where ops run inline,
+the ATen operator calls) and `peak_mem_mib` (peak device memory over both
+forms; null on the CPU). --profile writes the last B's
 trace (Chrome format) into DIR. `--small` runs a reduced config and scan
 and fewer steps (tests/test_torch_batch_scaling.py). The counterpart of
 tools/batch_scaling.py: it runs on the card unless given --device cpu,
@@ -33,7 +37,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from dliom_tpu_torch.common.device import get_device  # noqa: E402
-from dliom_tpu_torch.parallel.batch import make_batched_lio_chunk, make_batched_lio_state  # noqa: E402
+from dliom_tpu_torch.frontend.lio import LioScanInput  # noqa: E402
+from dliom_tpu_torch.parallel.batch import (  # noqa: E402
+    batched_lio_body,
+    make_batched_lio_chunk,
+    make_batched_lio_state,
+)
 
 CHUNK = 2  # steps per make_batched_lio_chunk call
 WARMUP = 2
@@ -72,34 +81,45 @@ def run_b(b, device, small, profile_dir=None):
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    state = make_batched_lio_state(cfg, b, device)
+    body = batched_lio_body(cfg, b)
     chunk = make_batched_lio_chunk(cfg, b, n["chunk"])
-    k = 0
+    stacked = [LioScanInput(*(torch.stack(x) for x in zip(*(scans[(k + i) % len(scans)]
+                                                             for i in range(n["chunk"])))))
+               for k in range(0, len(scans), n["chunk"])]
+    box = {"eager": make_batched_lio_state(cfg, b, device), "compiled": make_batched_lio_state(cfg, b, device),
+           "k": 0}
 
-    def steps(count):
-        nonlocal state, k
+    def eager(count):
+        for _ in range(count):
+            box["eager"], res = body(box["eager"], scans[box["k"] % len(scans)])
+            box["k"] += 1
+        return res.scan.local_pose.translation
+
+    def compiled(count):
         for _ in range(count // n["chunk"]):
-            state, results = chunk(state, [scans[(k + i) % len(scans)] for i in range(n["chunk"])])
-            k += n["chunk"]
-        return results
+            box["compiled"], res = chunk(box["compiled"], stacked[box["k"] % len(stacked)])
+            box["k"] += 1
+        return res.scan.local_pose.translation
 
-    steps(n["warmup"])
-    sync()
-    t0 = time.perf_counter()
-    results = steps(n["measure"])
-    sync()
-    wall = time.perf_counter() - t0
-    for r in results:
-        if not bool(torch.isfinite(r.scan.local_pose.translation).all()):
-            raise RuntimeError(f"B={b}: a pose is not finite")
-    cycle = lambda: steps(n["profiled"])  # noqa: E731
+    rates = {}
+    for name, steps in (("eager", eager), ("compiled", compiled)):
+        box["k"] = 0
+        steps(n["warmup"])
+        sync()
+        t0 = time.perf_counter()
+        poses = steps(n["measure"])
+        sync()
+        rates[name] = n["measure"] * b / (time.perf_counter() - t0)
+        if not bool(torch.isfinite(poses).all()):
+            raise RuntimeError(f"B={b}: a {name} pose is not finite")
+    cycle = lambda: eager(n["profiled"])  # noqa: E731
     prof = chip_smoke.warm_profile([cycle, cycle])[0] if cuda else _cpu_profile(cycle)
     events = prof.events()
     launches = (len(chip_smoke.device_events(events)) if cuda else top_level_ops(events)) / n["profiled"]
     if profile_dir:
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(profile_dir) / f"batch_{b}.json"))
-    return {"rate": n["measure"] * b / wall, "launches_per_step": launches,
+    return {"rate": rates["eager"], "compiled_rate": rates["compiled"], "launches_per_step": launches,
             "peak_mem_mib": torch.cuda.max_memory_allocated() / 2**20 if cuda else None}
 
 
@@ -126,15 +146,17 @@ def main(argv=None):
         from dliom_tpu_torch import kernels
         kernels.build()
     bs = [int(x) for x in args.bs.split(",")]
-    base = None
+    base = {}
     lines = []
     for i, b in enumerate(bs):
         out = run_b(b, device, args.small, args.profile if i == len(bs) - 1 else None)
-        per_seq = out["rate"] / b
-        base = base or per_seq
-        line = {"batch": b, "aggregate_scans_per_sec": out["rate"], "per_seq_scans_per_sec": per_seq,
-                "scaling_vs_b1": per_seq / base, "launches_per_step": out["launches_per_step"],
-                "peak_mem_mib": out["peak_mem_mib"]}
+        line = {"batch": b}
+        for prefix, rate in (("", out["rate"]), ("compiled_", out["compiled_rate"])):
+            per_seq = rate / b
+            base.setdefault(prefix, per_seq)
+            line.update({f"{prefix}aggregate_scans_per_sec": rate, f"{prefix}per_seq_scans_per_sec": per_seq,
+                         f"{prefix}scaling_vs_b1": per_seq / base[prefix]})
+        line.update(launches_per_step=out["launches_per_step"], peak_mem_mib=out["peak_mem_mib"])
         print(json.dumps(line), flush=True)
         lines.append(line)
     return lines
