@@ -84,14 +84,35 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      state and input, within 2e-3 of the card's local pose. The course is
      tools/torch_e2e_loop_ate.py's; its `evaluate` (ATE, endpoint error,
      INTER, nodes, submaps), the truth paired with the nodes by node time,
-     is printed after the warm-up and after `finish_trajectory()`;
+     is printed after the warm-up and after `finish_trajectory()`. The
+     backend's compiled programs (backend/pose_graph.py: decompress and
+     pyramid, the searches with refinement, project, propose, the SPA's
+     GN step, each a CUDA graph captured on its pool thread while the
+     frontend replays): their warm-ups, captures and replays, at least one
+     capture and one replay of a with-initial search and of the SPA; the
+     first HELD_REPLAYS replays of every backend graph held against its
+     body run eagerly from copies of the same inputs (`found` and integers
+     equal, score, poses within HELD_ATOL), each timed beside its eager
+     run; then, with the pool idle, each graph's capture seconds, replay
+     device time and kernels, and the device time of copying a cached
+     submap's grids into a thread's static grids; the device memory the
+     pose graph's programs held, given back when they are dropped (as the
+     pose graph that owns them drops them), and what the builder left
+     allocated once freed; the `search_*`, `spa` and `compress` phase
+     seconds and the mapping rate over a timed stretch that holds at least
+     one loop search and one periodic solve, beside the eager backend's
+     (PERF.md §5);
   9. the shipped presets' own paths through `MapBuilder`, at their
      published sizes: (a) `campus` as shipped (dense 0.2 m / 0.45 m grids
      of 512^3 / 256^3 cells, per-record insertion, NDT dynamic
      initialization, the gravity factor) on a course that moves from the
      first scan with a time-varying acceleration: initialization in motion
      (up within 0.99, velocity within 0.4 m/s of the truth, the result
-     re-run on the CPU from the same buffered inputs within INIT_ATOL),
+     re-run on the CPU from the same buffered inputs within INIT_ATOL; the
+     NDT odometry a compiled program: one warm-up and capture, every later
+     match a replay, the first HELD_REPLAYS held against the eager
+     `build_field` + `ndt_match` from the same inputs; its seconds and the
+     initializer's beside the eager ones (PERF.md)),
      then CAMPUS_STEPS stepped scans (printed as `reduced`) (finite, no failure reset, no drops,
      the gravity factor valid), K2 launched exactly once per initializer
      segment and once per stepped scan, the first CAMPUS_COMPARE steps
@@ -190,7 +211,9 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      tools/torch_loop_recall.py's trials 1000-1002 at its own size (5
      places, 8 m of drift beyond the proximity gate and the search window):
      each with proposal recall 1, closure 1 and no false INTER constraint,
-     no K1 or K2 launch; trial 1000 again on the CPU: the same proposals
+     no K1 or K2 launch, through the compiled search programs (each
+     trial's pose graph owns its programs: each captured, the decompression
+     and the projection replayed, counts printed); trial 1000 again on the CPU: the same proposals
      and INTER submaps, the INTER relative pose within LOOP_REL_ATOL; and
      tools/torch_loop_debug.py's `score_at_pose` of its revisit node at
      its true pose on submap 0, card against CPU within SCORE_ATOL. (b)
@@ -220,8 +243,11 @@ card could take for the work of those inputs: bytes (each input read once,
 each output written once, counted from the data) over 3.35 TB/s, or
 float32 operations over 67 TFLOP/s, whichever is larger.
 
-Phase 8's timed stretch is TIMED_E2E scans, not bench.py's full lap: the
-whole script must stay well inside its time limit (PERF.md says so).
+Phase 8's timed stretch is not bench.py's full lap (the whole script must
+stay well inside its time limit, PERF.md says so): it runs E2E_TIMED scans,
+then 8 more at a time until a loop search and a periodic SPA solve have
+both ended inside it (at most E2E_TIMED_MAX), so that its rate holds the
+backend's replays on the pool threads beside the frontend's.
 
 Scan stamps are spaced 0.6 s apart so the motion filter (max_time_seconds
 0.5) admits every scan and the run reaches num_range_data = 100 inserts.
@@ -242,6 +268,7 @@ the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 never msgpack.
 """
 
+import gc
 import importlib.util
 import json
 import subprocess
@@ -277,7 +304,9 @@ E2E_RADIUS = 2.0  # m: bench.py's circle is 5 m; cut so that the warm-up's revis
 E2E_WARM = 134  # 1.6 laps of 84 scans: the third submap (nodes 32-63) finishes, its revisit
 # nodes searched against the first (bench.py: 1.12 laps of the 5 m circle, 235 scans)
 E2E_WARM_MORE = 32  # at most this many more, 8 at a time, while no INTER constraint is found
-E2E_TIMED = 10  # bench.py times a full lap (209 scans); cut to fit the limit
+E2E_TIMED = 10  # bench.py times a full lap (209 scans); cut to fit the limit, then
+E2E_TIMED_MAX = 120  # lengthened to hold a search and a periodic solve (a submap finishes
+# every ~32 scans here, a solve runs every 32 nodes, ~64 scans)
 E2E_PROFILED = 2  # scans under torch.profiler after the timed stretch
 E2E_COMPARE = 5  # local poses compared with the port's CPU run
 E2E_BANK_FROM = 80  # the bank window starts here (steps; the motion starts at step 8)
@@ -1325,6 +1354,161 @@ def hold_steps(select=lambda k, rec: False, keep=lambda k, rec: False, after=Non
     return rec
 
 
+BACKEND_GRAPHS = ("decompress", "project", "propose", "search_initial", "search_full", "spa", "ndt")
+HELD_REPLAYS = 2  # replays of each backend graph held against the eager body from the same inputs
+
+
+def _leaf_diff(x, y):
+    """(integers and flags equal, largest float difference) of two leaves;
+    equal infinities (an unfound search's score) count as no difference."""
+    if not x.dtype.is_floating_point:
+        return torch.equal(x, y), 0.0
+    same = (x == y) | (torch.isnan(x) & torch.isnan(y))
+    d = torch.where(same, 0.0, (x - y).abs())
+    return True, float(d.max()) if d.numel() else 0.0
+
+
+def hold_backend_graphs(names=BACKEND_GRAPHS, replays=HELD_REPLAYS):
+    """Wrap `StepGraph.step` so that the first `replays` replays of every
+    graph named in `names` (the backend's programs, the NDT odometry) are
+    held against the graph's body run eagerly, on the same thread and
+    stream, from copies of the same static state and input (under the
+    graph's linear algebra, `graph.cusolver`): integers and flags exactly
+    (a search's `found`), floats within HELD_ATOL (score, pose; the SPA's
+    poses; the NDT pose). Each held replay and its eager run are timed with
+    their stream synchronized either side. Returns the dict it fills
+    (`check_backend_held` reads it); rec["restore"]() unwraps."""
+    import threading
+
+    from torch.utils._pytree import tree_leaves
+
+    from dliom_tpu_torch.common import graph as cg
+
+    orig = cg.StepGraph.step
+    rec = {"held": {}, "errors": [], "lock": threading.Lock()}
+
+    def step(self):
+        held = rec["held"].setdefault(id(self), {"name": self.name, "replays": 0, "int_equal": True,
+                                                 "max_diff": 0.0, "replay_s": 0.0, "eager_s": 0.0})
+        if (self.name not in names or self.graph is None or self.device.type != "cuda"
+                or held["replays"] >= replays):
+            return orig(self)
+        try:
+            stream = torch.cuda.current_stream(self.device)
+            pre = tree_clone((self.state, self.inp))
+            stream.synchronize()
+            t0 = time.perf_counter()
+            orig(self)
+            stream.synchronize()
+            t1 = time.perf_counter()
+            with cg.cusolver():
+                want_state, want = self.body(*pre)
+            stream.synchronize()
+            t2 = time.perf_counter()
+            got = tree_leaves((self.state, self.result))
+            for x, y in zip(got, tree_leaves((want_state, want))):
+                if x is None:  # a body without a result
+                    continue
+                eq, d = _leaf_diff(x, y)
+                held["int_equal"] &= eq
+                held["max_diff"] = max(held["max_diff"], d)
+            held["replays"] += 1
+            held["replay_s"] += t1 - t0
+            held["eager_s"] += t2 - t1
+        except BaseException as e:  # a pool task's error: checked on the main thread
+            with rec["lock"]:
+                rec["errors"].append(f"{self.name}: {e!r}")
+            raise
+
+    cg.StepGraph.step = step
+    rec["restore"] = lambda: setattr(cg.StepGraph, "step", orig)
+    return rec
+
+
+def check_backend_held(tag, rec, required):
+    """The held replays of `hold_backend_graphs`: no error, every graph
+    named in `required` held at least once, integers exact and floats
+    within HELD_ATOL; prints the largest difference and the replay and
+    eager seconds per program. Returns them by program."""
+    check(not rec["errors"], f"{tag}: holding the backend graphs failed: {rec['errors']}")
+    by = {}
+    for h in rec["held"].values():
+        if not h["replays"]:
+            continue
+        b = by.setdefault(h["name"], {"graphs": 0, "replays": 0, "int_equal": True, "max_diff": 0.0,
+                                      "replay_s": 0.0, "eager_s": 0.0})
+        b["graphs"] += 1
+        for k in ("replays", "replay_s", "eager_s"):
+            b[k] += h[k]
+        b["int_equal"] &= h["int_equal"]
+        b["max_diff"] = max(b["max_diff"], h["max_diff"])
+    for name in required:
+        check(name in by, f"{tag}: no replay of a {name} graph was held against its eager run")
+    for name, b in sorted(by.items()):
+        check(b["int_equal"] and b["max_diff"] <= HELD_ATOL,
+              f"{tag}: {name} graph replays vs eager: {b}")
+        print(f"{tag}: {name}: {b['replays']} replays of {b['graphs']} graphs held against the eager body "
+              f"from the same inputs: integers and flags equal, largest float difference {b['max_diff']:.3e}; "
+              f"{b['replay_s'] / b['replays'] * 1e3:.2f} ms a replay against {b['eager_s'] / b['replays'] * 1e3:.2f} "
+              f"ms eager (stream synchronized, host clock)", flush=True)
+    return by
+
+
+def replay_ms(graph, n=5):
+    """Device ms of one replay of `graph` (CUDA events around n replays on
+    the current stream, after one), and the device kernels of one replay
+    (torch.profiler, the card's activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, len(device_events(prof.events()))
+
+
+def measure_backend_graphs(pg):
+    """After the pool threads are idle: per backend graph of `pg`'s programs,
+    its capture seconds, its replay's device ms and kernels (`replay_ms`),
+    and the device ms of copying a cached submap's grids into a thread's
+    static grids. Replays run on this thread's stream from the static
+    inputs the graph holds; nothing reads their results."""
+    out = {}
+    for name, gs in sorted(pg.programs().items()):
+        for key, g in gs:
+            if g.graph is None:
+                continue
+            ms, kernels = replay_ms(g.graph)
+            shape = [list(x) for x in key[1:] if isinstance(x, tuple)]
+            out.setdefault(name, []).append({"capture_s": g.capture_seconds, "replay_ms": ms,
+                                             "kernels": kernels, "shapes": shape[:1], "counts": g.counts()})
+    copy_ms = None
+    progs = [p for p in pg._programs_by_thread.values() if p.grids is not None]
+    if progs and pg._grid_cache:
+        prog, hit = progs[0], next(iter(pg._grid_cache.values()))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            prog.loaded = None
+            prog.load_grids(hit)
+        end.record()
+        torch.cuda.synchronize()
+        copy_ms = start.elapsed_time(end) / 5
+    for name, rows in sorted(out.items()):
+        for r in rows:
+            print(f"backend graph {name} {r['shapes']}: capture {r['capture_s']:.3f} s, replay "
+                  f"{r['replay_ms']:.3f} ms device time, {r['kernels']} kernels; {r['counts']}", flush=True)
+    print(f"backend: a cached submap's grids copied into a thread's static grids: {copy_ms} ms device time",
+          flush=True)
+    return {"graphs": out, "grid_copy_ms": copy_ms}
+
+
 def check_graph_counts(tag, counts, stepped, trajectories=1):
     """The compiled steps' counts (`MapBuilder.step_counts()`, or summed over
     graphs): one warm-up and one capture per trajectory, every other
@@ -1398,11 +1582,12 @@ def check_mapping(ga, ac, dev):
 
     cfg = load_config("basic", E2E_OVERRIDES)
     n_warm = E2E_STATIC + E2E_WARM
-    course = e2e_course(n_warm + E2E_WARM_MORE + E2E_TIMED + 2 * E2E_PROFILED, poses=True,
+    course = e2e_course(n_warm + E2E_WARM_MORE + E2E_TIMED_MAX + 2 * E2E_PROFILED, poses=True,
                         radius=E2E_RADIUS)
     builder = MapBuilder(cfg, use_background_threads=True, pipeline_depth=1, device=dev)
     pg = builder.pose_graph
     rec = record_steps(set(range(E2E_COMPARE)), E2E_BANK_FROM, E2E_BANK_MAX)
+    backend_held = hold_backend_graphs()
     ga.LAUNCHES = 0  # the main path starts: zero the launch counts
     ga.DENSE_LAUNCHES = 0
     ac.LAUNCHES = 0
@@ -1417,26 +1602,43 @@ def check_mapping(ga, ac, dev):
         n_warm += 8
         builder.flush()
         pg.wait_for_all_computations()
-    course = course[:n_warm + E2E_TIMED + 2 * E2E_PROFILED]
     warm_s = time.perf_counter() - t_all
     print(f"mapping: warm-up {n_warm} scans in {warm_s:.1f} s; nodes {len(pg.nodes)} submaps "
           f"{len(pg.submaps)} INTER {pg.num_inter_constraints()}", flush=True)
     accuracy = {"warm_up": e2e_accuracy(pg, course)}
     print(f"mapping: e2e evaluator (tools/torch_e2e_loop_ate.py on its course at bench_e2e's config, truth "
           f"by node time) after the {n_warm}-scan warm-up: {fmt_accuracy(accuracy['warm_up'])}", flush=True)
+    warm_phases = dict(sorted(pg.phase_seconds.items()))
+    warm_search = list(pg.constraint_search_seconds)
+    print(f"mapping: over the warm-up (the backend's captures included): {len(warm_search)} searches, "
+          f"{sum(warm_search):.3f} s in all; phase_seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in warm_phases.items()), flush=True)
     builder.local_slam_latency_seconds.clear()
     pg.constraint_search_seconds.clear()
     pg.phase_seconds.clear()
+    spa_steps = builder.graph_counts().get("spa", {}).get("steps", 0)
     t0 = time.perf_counter()
-    drive(builder, course[n_warm:n_warm + E2E_TIMED])
+    timed = 0
+    while timed < E2E_TIMED_MAX and (timed < E2E_TIMED or not pg.constraint_search_seconds
+                                     or "spa" not in pg.phase_seconds):
+        n = E2E_TIMED if timed == 0 else 8
+        drive(builder, course[n_warm + timed:n_warm + timed + n])
+        timed += n
     builder.flush()
     pg.wait_for_all_computations()
     torch.cuda.synchronize()
     timed_s = time.perf_counter() - t0
+    course = course[:n_warm + timed + 2 * E2E_PROFILED]
     lat = np.asarray(builder.local_slam_latency_seconds) * 1e3
     phases = dict(sorted(pg.phase_seconds.items()))
     search = np.asarray(pg.constraint_search_seconds)
-    print(f"mapping: timed {E2E_TIMED} scans in {timed_s:.3f} s", flush=True)
+    solves = ((builder.graph_counts().get("spa", {}).get("steps", 0) - spa_steps)
+              // cfg.pose_graph.optimization_problem.max_num_iterations)
+    print(f"mapping: timed {timed} scans in {timed_s:.3f} s, holding {len(search)} loop searches and {solves} "
+          f"periodic SPA solves", flush=True)
+    check(len(search) >= 1 and solves >= 1,
+          f"mapping: the timed stretch of {timed} scans held a loop search ({len(search)}) and a periodic "
+          f"solve ({solves})")
 
     def cycle(scans):
         def run():
@@ -1445,7 +1647,7 @@ def check_mapping(ga, ac, dev):
             pg.wait_for_all_computations()
         return run
 
-    a = n_warm + E2E_TIMED
+    a = n_warm + timed
     # the card's activity only: these figures read nothing else, and a
     # profile with host ops took ~70 s to read here
     prof, prof_wall = warm_profile([cycle(course[a:a + E2E_PROFILED]), cycle(course[a + E2E_PROFILED:])],
@@ -1463,18 +1665,29 @@ def check_mapping(ga, ac, dev):
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
     rec["restore"]()
+    backend_held["restore"]()
 
     results = builder.local_trajectory(0)
     stepped = len(results)
     graph_counts = check_graph_counts("mapping", builder.step_counts(), stepped)
+    backend_counts = builder.graph_counts()
+    print("mapping: backend programs (steps = warm-ups + replays; captures): " + "; ".join(
+        f"{k} {v['steps']} = {v['warmups']} + {v['replays']}; {v['captures']}"
+        for k, v in backend_counts.items() if k not in ("step", "ndt")), flush=True)
+    for name in ("search_initial", "spa"):
+        c = backend_counts.get(name, {})
+        check(c.get("captures", 0) >= 1 and c.get("replays", 0) >= 1,
+              f"mapping: the {name} program was captured and replayed on the pool threads: {c}")
+    held_backend = check_backend_held("mapping", backend_held, ("search_initial", "spa"))
+    backend_graphs = measure_backend_graphs(pg)
     inserted = sum(r["inserted"] for r in results)
     inter = pg.num_inter_constraints()
     drops = int(builder.trajectory(0)._lio.frontend.submaps.dense_dropped[0])
-    print(f"mapping: {len(course)} scans ({E2E_STATIC} static, {n_warm - E2E_STATIC} warm-up, {E2E_TIMED} "
+    print(f"mapping: {len(course)} scans ({E2E_STATIC} static, {n_warm - E2E_STATIC} warm-up, {timed} "
           f"timed, {E2E_PROFILED} + {E2E_PROFILED} profiled after a warm-up cycle) in {total_s:.1f} s "
           f"(warm-up {warm_s:.1f} s); "
           f"{stepped} stepped, {inserted} inserted")
-    print(f"mapping: timed {E2E_TIMED} scans in {timed_s:.3f} s = {E2E_TIMED / timed_s:.3f} scans/s; "
+    print(f"mapping: timed {timed} scans in {timed_s:.3f} s = {timed / timed_s:.3f} scans/s; "
           f"scan latency p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms; "
           f"searches {len(search)} (p50 {np.percentile(search, 50) if len(search) else 0:.3f} s)")
     print(f"mapping: nodes {len(pg.nodes)} submaps {len(pg.submaps)} constraints "
@@ -1482,6 +1695,11 @@ def check_mapping(ga, ac, dev):
           f"dense groups dropped {drops}; launches {launches}")
     print("mapping: phase_seconds over the timed stretch: "
           + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()))
+    print(f"mapping: compiled backend beside the eager backend's figures (PERF.md §5; NVIDIA H100 80GB HBM3, 700 W): "
+          f"{timed / timed_s:.3f} scans/s (6.203), p50 {np.percentile(lat, 50):.1f} ms (65.3), p99 "
+          f"{np.percentile(lat, 99):.1f} ms (87.4), SPA {phases.get('spa', 0.0):.3f} s over the {timed} timed "
+          f"scans, {solves} solves and {len(search)} searches (1.50 s over 10 scans); idle share below "
+          f"(0.703)", flush=True)
     print(f"mapping: profiled {E2E_PROFILED} scans (card activity only): {prof_wall / E2E_PROFILED:.1f} ms/scan wall, "
           f"card busy {busy / E2E_PROFILED:.2f} ms/scan, idle share {1 - busy / prof_wall:.3f}; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
@@ -1549,12 +1767,37 @@ def check_mapping(ga, ac, dev):
               f"mapping step {k}: the CPU finishes a submap where the card does")
     print(f"mapping: steps {compared} re-run on the CPU from the card's state: largest "
           f"pose difference {worst:.3e} (tolerance {POSE_ATOL})")
-    return launches, {"scans_per_s": E2E_TIMED / timed_s, "warm_up_scans": n_warm - E2E_STATIC,
+    return launches, {"scans_per_s": timed / timed_s, "timed_scans": timed, "timed_solves": solves,
+                      "warm_up_scans": n_warm - E2E_STATIC,
                       "compiled_step": graph_counts, "graph_vs_eager": held,
                       "p50_ms": float(np.percentile(lat, 50)),
                       "p99_ms": float(np.percentile(lat, 99)), "inter": inter,
                       "nodes": len(pg.nodes), "submaps": len(pg.submaps),
-                      "idle_share": 1 - busy / prof_wall, "phase_seconds": phases, "e2e_accuracy": accuracy}
+                      "idle_share": 1 - busy / prof_wall, "phase_seconds": phases, "e2e_accuracy": accuracy,
+                      "final_spa_s": final_spa_s, "search_s": search.tolist(),
+                      "warm_up_phase_seconds": warm_phases, "warm_up_search_s": warm_search,
+                      "backend_counts": backend_counts, "backend_held": held_backend,
+                      "backend_graphs": backend_graphs, "programs_mib": programs_memory(pg)}
+
+
+def programs_memory(pg):
+    """The device memory (MiB allocated, reserved) that the pose graph's
+    programs held: what dropping them (as dropping the pose graph does)
+    gives back, unused cache emptied."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    n = sum(len(gs) for gs in pg.programs().values())
+    pg._programs_by_thread.clear()
+    pg._spa_graphs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mib = [(b - a) / 2**20 for a, b in zip((torch.cuda.memory_allocated(), torch.cuda.memory_reserved()), before)]
+    print(f"mapping: the pose graph's {n} programs (graphs, static buffers, pools, static grids) held "
+          f"{mib[0]:.1f} MiB allocated, {mib[1]:.1f} MiB reserved; freed with them", flush=True)
+    check(mib[1] > 0, f"mapping: dropping the pose graph's programs gave back no memory ({mib})")
+    return {"allocated": mib[0], "reserved": mib[1]}
 
 
 def campus_course(n_scans):
@@ -1607,13 +1850,12 @@ def drive_until(builder, course, steps):
 def record_initializer(builder):
     """Wrap the builder's dynamic initializer: keep its calls (to replay
     them on the CPU), count its segments (each a K2 launch), time its scans
-    and, with a synchronize either side, its preintegrations, NDT fields
-    and NDT matches. Returns the dict it fills."""
-    from dliom_tpu_torch.imu import dynamic_initializer as di
-
+    and, with a synchronize either side, its preintegrations and its NDT
+    odometry (the compiled `build_field` + `ndt_match`). Returns the dict
+    it fills."""
     init = builder.trajectory(0)._dyn_init
     rec = {"calls": [], "segments": 0, "scans": 0, "seconds": 0.0, "result": None,
-           "parts": {"preintegrate": 0.0, "build_field": 0.0, "ndt_match": 0.0}}
+           "parts": {"preintegrate": 0.0, "ndt_odometry": 0.0}, "odometry_s": []}
     add_imu, add_scan, segment = init.add_imu, init.add_scan, init._segment_preint
 
     def timed(part, fn):
@@ -1623,15 +1865,16 @@ def record_initializer(builder):
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             rec["parts"][part] += time.perf_counter() - t0
+            if part == "ndt_odometry":
+                rec["odometry_s"].append(time.perf_counter() - t0)
             return out
         return run
 
-    build_field, match = di.build_field, di.ndt_match
-    di.build_field, di.ndt_match = timed("build_field", build_field), timed("ndt_match", match)
     segment = timed("preintegrate", segment)
+    init._odometry = timed("ndt_odometry", init._odometry)
 
     def restore():
-        di.build_field, di.ndt_match = build_field, match
+        del init._odometry
 
     def imu(t, acc, gyr):
         rec["calls"].append(("imu", t, acc, gyr))
@@ -1674,6 +1917,7 @@ def check_campus(ac, dev):
                            + 2 * CAMPUS_PROFILED)
     builder = MapBuilder(cfg, device=dev)
     init = record_initializer(builder)
+    ndt_held = hold_backend_graphs(("ndt",))
     rec = hold_steps(keep=lambda k, _: k < CAMPUS_COMPARE)
     ac.LAUNCHES = 0  # the main path starts: zero the launch counts
     torch.cuda.reset_peak_memory_stats()
@@ -1685,9 +1929,18 @@ def check_campus(ac, dev):
     compiled_mib = (torch.cuda.max_memory_allocated() / 2**20, torch.cuda.memory_reserved() / 2**20)
     rec["restore"]()
     init["restore"]()
+    ndt_held["restore"]()
     results = builder.local_trajectory(0)[:]
     stepped = len(results)
     graph_counts = check_graph_counts("campus", builder.step_counts(), stepped)
+    ndt_counts = builder.graph_counts()["ndt"]
+    print(f"campus: NDT odometry program: {ndt_counts['steps']} steps = {ndt_counts['warmups']} warm-up + "
+          f"{ndt_counts['replays']} replays; {ndt_counts['captures']} captures", flush=True)
+    check(ndt_counts["warmups"] == ndt_counts["captures"] == 1
+          and ndt_counts["replays"] == ndt_counts["steps"] - 1 >= 1, f"campus: NDT odometry counts {ndt_counts}")
+    held_ndt = check_backend_held("campus", ndt_held, ("ndt",))
+    ndt_ms, ndt_kernels = replay_ms(builder.trajectory(0)._dyn_init.odometry_graph.graph)
+    print(f"campus: one NDT odometry replay: {ndt_ms:.3f} ms device time, {ndt_kernels} kernels", flush=True)
     # the eager step's peak memory from the last step's state and input
     traj = builder.trajectory(0)
     pre, inp = tree_clone(traj._lio), tree_clone(traj._step.inp)
@@ -1732,6 +1985,12 @@ def check_campus(ac, dev):
           + ", ".join(f"{k} {v:.3f} s" for k, v in init["parts"].items()) + f"); up.z {up:.5f}, velocity "
           f"{np.round(res.nav.velocity.cpu().numpy(), 3).tolist()} vs truth "
           f"{np.round(course[init_scan][4], 3).tolist()} (error {v_err:.3f} m/s)", flush=True)
+    odo = init["odometry_s"]
+    print(f"campus: initializer {init['seconds']:.3f} s, NDT odometry {init['parts']['ndt_odometry']:.3f} s over "
+          f"{len(odo)} matches (the first, the eager warm-up and the capture, {odo[0]:.3f} s; the replays "
+          f"{np.round(odo[1:], 4).tolist()} s, the first {HELD_REPLAYS} with their eager re-runs; without those "
+          f"{init['parts']['ndt_odometry'] - held_ndt['ndt']['eager_s']:.3f} s) beside the eager initializer's 3.052 s, "
+          f"NDT (build_field + ndt_match) 2.948 s (PERF.md; NVIDIA H100 80GB HBM3, 700 W)", flush=True)
     check(up > 0.99, f"campus: gravity-aligned after initialization (up.z {up:.4f})")
     check(v_err < 0.4, f"campus: initial velocity within 0.4 m/s of the truth ({v_err:.3f})")
 
@@ -1782,6 +2041,8 @@ def check_campus(ac, dev):
                       "compiled_step": graph_counts, "compiled_peak_mib": compiled_mib[0],
                       "compiled_reserved_mib": compiled_mib[1], "eager_step_peak_mib": eager_mib,
                       "init_seconds": init["seconds"], "init_parts": init["parts"],
+                      "ndt_odometry_s": init["odometry_s"], "ndt_counts": ndt_counts, "ndt_held": held_ndt,
+                      "ndt_replay_ms": ndt_ms, "ndt_replay_kernels": ndt_kernels,
                       "init_scan": init_scan, "init_velocity_error": v_err, "init_cuda_vs_cpu": init_diff}
 
 
@@ -2768,7 +3029,7 @@ def check_loop_recall(ga, ac, dev):
         t0 = time.perf_counter()
         r = lr.run_trial(seed, device=dev, keep=keep)
         torch.cuda.synchronize()
-        trials.append(dict(r, seed=seed, seconds=time.perf_counter() - t0))
+        trials.append(dict(r, seed=seed, seconds=time.perf_counter() - t0, programs=keep["pg"].graph_counts()))
         card = card or keep
         check(r["recall"] == 1.0 and r["closed"] == 1.0 and r["false_constraints"] == 0,
               f"phase 13: loop-recall trial {seed} on the card: {r}")
@@ -2777,6 +3038,17 @@ def check_loop_recall(ga, ac, dev):
     print("loop recall: " + "; ".join(
         f"trial {t['seed']} recall {t['recall']:.0f} precision {t['precision']:.3f} closed {t['closed']:.0f} "
         f"false INTER {t['false_constraints']} in {t['seconds']:.2f} s" for t in trials), flush=True)
+    # each trial's pose graph owns its programs: it warms up and captures
+    # each, and replays those it calls again (a submap's grids and image)
+    print("loop recall: each trial's compiled programs (steps = warm-ups + replays; captures): " + " | ".join(
+        f"trial {t['seed']}: " + ", ".join(f"{k} {v['steps']} = {v['warmups']} + {v['replays']}; {v['captures']}"
+                                           for k, v in t["programs"].items()) for t in trials), flush=True)
+    for t in trials:
+        p = t["programs"]
+        check(all(p.get(k, {}).get("captures", 0) >= 1 for k in ("decompress", "project", "propose", "search_initial"))
+              and all(p[k]["replays"] >= 1 for k in ("decompress", "project")),
+              f"phase 13: loop-recall trial {t['seed']} captured every search program and replayed the "
+              f"decompression and the projection: {p}")
 
     cpu = {}
     t0 = time.perf_counter()
@@ -2916,7 +3188,13 @@ def main():
     print(f"phase 7: {time.perf_counter() - t7:.1f} s")
     check(dense_kernels == 1, f"K1 dense entry: {dense_kernels} device kernels per call, not 1")
     t8 = time.perf_counter()
+    gc.collect()
+    mem = torch.cuda.memory_allocated()
     map_launches, mapping = check_mapping(ga, ac, get_device("cuda"))
+    gc.collect()
+    mapping["left_by_builder_mib"] = (torch.cuda.memory_allocated() - mem) / 2**20
+    print(f"mapping: device memory allocated after the builder was freed, beside before it was made: "
+          f"{mapping['left_by_builder_mib']:+.1f} MiB")
     print(f"phase 8: {time.perf_counter() - t8:.1f} s")
     t9 = time.perf_counter()
     campus_k2, campus = check_campus(ac, get_device("cuda"))
@@ -2954,7 +3232,7 @@ def main():
                       "affine_chain_by_length": k2, "affine_chain_launches": k2_launches,
                       "reduced": {"mapping": f"the course's circle 5 m -> {E2E_RADIUS} m, its warm-up "
                                              f"235 scans -> {mapping['warm_up_scans']}; timed scans "
-                                             f"209 -> {E2E_TIMED}",
+                                             f"209 -> {mapping['timed_scans']}",
                                   "viral": f"submaps.num_range_data 100 -> {VIRAL_RANGE_DATA}: "
                                            "a slot recycle needs 2 x num_range_data inserts, "
                                            f"which the course's {E2E_STATIC + VIRAL_MOVING} scans make",

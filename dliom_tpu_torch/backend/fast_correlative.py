@@ -12,6 +12,10 @@ mean pyramid byte of the scan's cells at the candidate offset, indices
 right-shifted by max(0, d - full_resolution_depth + 1) (DiscretizeScan
 :252-295). Top-k keeps the lower index first among equal scores, as
 jax.lax.top_k does.
+
+Nothing here reads the host or sizes a tensor from data, and the lattice
+offsets are `common/device.py` constants, so the pose graph captures a
+search in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from dliom_tpu_torch.backend.compression import top_k
 from dliom_tpu_torch.backend.precomputation import Pyramid, probability_from_byte
 from dliom_tpu_torch.common.config import FastCorrelativeConfig
+from dliom_tpu_torch.common.device import constant
 from dliom_tpu_torch.mapping.grid import GridSpec, cell_index, interpolated_probability
 from dliom_tpu_torch.ops.rotational_histogram import match_histograms
 from dliom_tpu_torch.transform.rigid import (
@@ -50,7 +55,7 @@ def _depth_cells(cells: torch.Tensor, depth: int, full_depth: int, window_start)
     if depth < full_depth:
         return cells
     e = depth - full_depth + 1
-    start = torch.tensor(window_start, dtype=torch.int32, device=cells.device)
+    start = constant(window_start, torch.int32, cells.device)
     return ((cells + start) >> e) - (start >> e)
 
 
@@ -133,13 +138,13 @@ def match_candidates(
         top_scores, top = _top_k_rows(scores, k)
         offsets = torch.gather(offsets, 1, top[..., None].expand(-1, -1, 3))
         hw = 1 << d
-        children = torch.tensor(
-            [[0, 0, 0], [hw, 0, 0], [0, hw, 0], [hw, hw, 0],
-             [0, 0, hw], [hw, 0, hw], [0, hw, hw], [hw, hw, hw]], dtype=torch.int32, device=dev)
+        children = constant(
+            ((0, 0, 0), (hw, 0, 0), (0, hw, 0), (hw, hw, 0),
+             (0, 0, hw), (hw, 0, hw), (0, hw, hw), (hw, hw, hw)), torch.int32, dev)
         child_off = (offsets[:, :, None, :] + children[None, None]).reshape(a_count, k * 8, 3)
         in_win = (child_off[..., 0] <= lin_xy) & (child_off[..., 1] <= lin_xy) \
             & (child_off[..., 2] <= lin_z)
-        parent_ok = torch.repeat_interleave(top_scores > 0.0, 8, dim=1)
+        parent_ok = (top_scores > 0.0)[:, :, None].expand(-1, -1, 8).reshape(a_count, k * 8)
         scores = torch.where(in_win & parent_ok, score(d, child_off), -1.0)
         offsets = child_off
 
@@ -216,13 +221,14 @@ def match(
     poses = Rigid3(cand_rot, initial_pose.translation[None] + res * offsets.to(torch.float32))
     low_scores = low_resolution_scores(low_values, low_spec, low_points, low_mask, poses)
     passes = (low_scores >= cfg.min_low_resolution_score) & (scores > min_score)
-    pick = torch.argmax(passes.to(torch.int32))  # first True in descending-score order
+    # a (1,) index, not a 0-dim one: indexing by a 0-dim tensor reads it on the host
+    pick = torch.argmax(passes.to(torch.int32)).reshape(1)  # first True in descending-score order
     found = torch.any(passes)
     return CorrelativeResult(
-        score=torch.where(found, scores[pick], -math.inf),
-        pose=Rigid3(poses.rotation[pick], poses.translation[pick]),
-        rotational_score=rot_scores[scan_idx[pick].long()],
-        low_resolution_score=low_scores[pick],
+        score=torch.where(found, scores[pick][0], -math.inf),
+        pose=Rigid3(poses.rotation[pick][0], poses.translation[pick][0]),
+        rotational_score=rot_scores[scan_idx[pick].long()][0],
+        low_resolution_score=low_scores[pick][0],
         found=found,
     )
 

@@ -204,122 +204,142 @@ def _diag_add_(diag: torch.Tensor, index: torch.Tensor, cols: slice, values: tor
     diag[:, cols] += segment_sum(values, index, diag.shape[0])[:, None]
 
 
+def blocks_of(data: PoseGraphData):
+    """(node-node, fixed-frame, landmark): whether each block has a valid
+    row, read on the host. `_build_problem` knows them without a read."""
+    return tuple(bool(torch.any(v)) for v in (data.nn_valid, data.ff_valid, data.lm_valid))
+
+
 def solve(data: PoseGraphData, *, iterations: int = 10, cg_iterations: int = 64,
           fix_first_submap: bool = True, ff_huber_scale: float = 0.0,
-          inter_huber_scale: float = 0.0) -> PoseGraphData:
+          inter_huber_scale: float = 0.0, blocks=None) -> PoseGraphData:
     """Gauss-Newton with matrix-free PCG on the normal equations
-    (`iterations` outer steps of `cg_iterations` CG steps each)."""
-    s = data.submap_q.shape[0]
-    n = data.node_q.shape[0]
-    dev = data.submap_q.device
-    free_submap = data.submap_valid & ~data.submap_fixed
+    (`iterations` outer steps of `cg_iterations` CG steps each, each one
+    `gn_step`). `blocks` as `blocks_of` gives them (read from `data` when
+    None)."""
+    if blocks is None:
+        blocks = blocks_of(data)
+    for _ in range(iterations):
+        data = gn_step(data, cg_iterations=cg_iterations, fix_first_submap=fix_first_submap,
+                       ff_huber_scale=ff_huber_scale, inter_huber_scale=inter_huber_scale,
+                       blocks=blocks)
+    return data
+
+
+def gn_step(d: PoseGraphData, *, cg_iterations: int = 64, fix_first_submap: bool = True,
+            ff_huber_scale: float = 0.0, inter_huber_scale: float = 0.0,
+            blocks=(True, True, True)) -> PoseGraphData:
+    """One Gauss-Newton step of `solve`: the new submap, node and landmark
+    poses. It reads nothing on the host, so a CUDA graph captures it
+    (`backend/pose_graph.py` replays one step `iterations` times); the rows
+    of the blocks `blocks` switches off must all be invalid."""
+    s = d.submap_q.shape[0]
+    n = d.node_q.shape[0]
+    dev = d.submap_q.device
+    free_submap = d.submap_valid & ~d.submap_fixed
     if fix_first_submap:
         free_submap = free_submap & (torch.arange(s, device=dev) != 0)
     submap_mask = free_submap[:, None].to(torch.float32)
-    node_mask = (data.node_valid & ~data.node_fixed)[:, None].to(torch.float32)
-    k_lm = data.lm_positions.shape[0]
+    node_mask = (d.node_valid & ~d.node_fixed)[:, None].to(torch.float32)
+    k_lm = d.lm_positions.shape[0]
     extra_dim = 3 + 6 * k_lm
-    has_ff = torch.any(data.ff_valid)
-    lm_free = torch.cat([has_ff.repeat(3), data.lm_pos_valid.repeat_interleave(3),
-                         data.lm_pos_valid.repeat_interleave(3)]).to(torch.float32)
+    has_ff = torch.any(d.ff_valid)
+    lm_pos3 = d.lm_pos_valid[:, None].expand(-1, 3).reshape(-1)
+    lm_free = torch.cat([has_ff.expand(3), lm_pos3, lm_pos3]).to(torch.float32)
     zeros = lambda *shape: torch.zeros(*shape, dtype=torch.float32, device=dev)  # noqa: E731
 
     def dot(a, b):
         return sum(torch.sum(ai * bi) for ai, bi in zip(a, b))
 
-    blocks = tuple(bool(torch.any(v)) for v in (data.nn_valid, data.ff_valid, data.lm_valid))
-    num_c = data.c_valid.shape[0]
-    cs, cn = data.c_submap.long(), data.c_node.long()
+    num_c = d.c_valid.shape[0]
+    cs, cn = d.c_submap.long(), d.c_node.long()
     by_submap, by_node = segment_plan(cs, s), segment_plan(cn, n)
-    d = data
-    for _ in range(iterations):
-        # SPA rows: each touches one submap and one node, so J is two (C,
-        # 6, 6) block columns. With per-constraint tangent copies, row k of
-        # every block is one backward pass of the k-th residuals' sum.
-        ds_rows = zeros(num_c, 6).requires_grad_()
-        dn_rows = zeros(num_c, 6).requires_grad_()
-        with torch.enable_grad():
-            r_spa = _spa_residuals(d, ds_rows * submap_mask[cs], dn_rows * node_mask[cn],
-                                   inter_huber_scale)
-            rows = [torch.autograd.grad(r_spa[:, k].sum(), (ds_rows, dn_rows), retain_graph=k < 5)
-                    for k in range(6)]
-        r_spa = r_spa.detach()
-        j_s = torch.stack([g[0] for g in rows], 1)
-        j_n = torch.stack([g[1] for g in rows], 1)
+    # SPA rows: each touches one submap and one node, so J is two (C, 6, 6)
+    # block columns. With per-constraint tangent copies, row k of every
+    # block is one backward pass of the k-th residuals' sum.
+    ds_rows = zeros(num_c, 6).requires_grad_()
+    dn_rows = zeros(num_c, 6).requires_grad_()
+    with torch.enable_grad():
+        r_spa = _spa_residuals(d, ds_rows * submap_mask[cs], dn_rows * node_mask[cn],
+                               inter_huber_scale)
+        rows = [torch.autograd.grad(r_spa[:, k].sum(), (ds_rows, dn_rows), retain_graph=k < 5)
+                for k in range(6)]
+    r_spa = r_spa.detach()
+    j_s = torch.stack([g[0] for g in rows], 1)
+    j_n = torch.stack([g[1] for g in rows], 1)
 
-        def spa_jt(u):
-            """J^T u of the SPA rows for row values u (C, 6)."""
-            return (segment_sum(torch.einsum("cij,ci->cj", j_s, u), by_submap),
-                    segment_sum(torch.einsum("cij,ci->cj", j_n, u), by_node),
-                    zeros(extra_dim))
+    def spa_jt(u):
+        """J^T u of the SPA rows for row values u (C, 6)."""
+        return (segment_sum(torch.einsum("cij,ci->cj", j_s, u), by_submap),
+                segment_sum(torch.einsum("cij,ci->cj", j_n, u), by_node),
+                zeros(extra_dim))
+
+    def hv(v):
+        u = torch.einsum("cij,cj->ci", j_s, v[0][cs]) + torch.einsum("cij,cj->ci", j_n, v[1][cn])
+        return spa_jt(u)
+
+    grad = spa_jt(r_spa)
+    if any(blocks):
+        # the other blocks matrix-free: J^T u is the vjp of their
+        # residuals, and u -> J^T u is linear, so its vjp applied to v is
+        # J v
+        def res_extra(ds, dn, de):
+            return _extra_residuals(d, dn * node_mask, de * lm_free, ff_huber_scale, blocks)
+
+        r0, vjp_fn = vjp(res_extra, zeros(s, 6), zeros(n, 6), zeros(extra_dim))
+        _, jt_vjp = vjp(vjp_fn, torch.zeros_like(r0))
+        grad = tuple(a + b for a, b in zip(grad, vjp_fn(r0)))
+        hv_spa = hv
 
         def hv(v):
-            u = torch.einsum("cij,cj->ci", j_s, v[0][cs]) + torch.einsum("cij,cj->ci", j_n, v[1][cn])
-            return spa_jt(u)
+            return tuple(a + b for a, b in zip(hv_spa(v), vjp_fn(jt_vjp(tuple(v))[0])))
 
-        grad = spa_jt(r_spa)
-        if any(blocks):
-            # the other blocks matrix-free: J^T u is the vjp of their
-            # residuals, and u -> J^T u is linear, so its vjp applied to v
-            # is J v
-            def res_extra(ds, dn, de, d=d):
-                return _extra_residuals(d, dn * node_mask, de * lm_free, ff_huber_scale, blocks)
+    # Exact Jacobi preconditioner diag(J^T J): the SPA blocks' column sums
+    # of squares; the node-node, fixed-frame and landmark rows add
+    # closed-form weights^2.
+    diag_s = segment_sum((j_s ** 2).sum(1), by_submap)
+    diag_n = segment_sum((j_n ** 2).sum(1), by_node)
+    tw2 = torch.where(d.nn_valid, d.nn_trans_weight ** 2, 0.0)
+    rw2 = torch.where(d.nn_valid, d.nn_rot_weight ** 2, 0.0)
+    for idx in (d.nn_first, d.nn_second):
+        _diag_add_(diag_n, idx, slice(0, 3), tw2)
+        _diag_add_(diag_n, idx, slice(3, 6), rw2)
+    _diag_add_(diag_n, d.ff_node, slice(0, 3), torch.where(d.ff_valid, d.ff_weight ** 2, 0.0))
+    a_lm = d.lm_alpha
+    ltw2 = torch.where(d.lm_valid, d.lm_trans_weight ** 2, 0.0)
+    lrw2 = torch.where(d.lm_valid, d.lm_rot_weight ** 2, 0.0)
+    _diag_add_(diag_n, d.lm_node, slice(0, 3), ltw2 * (1.0 - a_lm) ** 2)
+    _diag_add_(diag_n, d.lm_node2, slice(0, 3), ltw2 * a_lm ** 2)
+    _diag_add_(diag_n, d.lm_node, slice(3, 6), lrw2 * (1.0 - a_lm) ** 2)
+    _diag_add_(diag_n, d.lm_node2, slice(3, 6), lrw2 * a_lm ** 2)
+    precond = (1.0 / torch.clamp(diag_s, min=1e-6), 1.0 / torch.clamp(diag_n, min=1e-6),
+               torch.ones(extra_dim, dtype=torch.float32, device=dev))
 
-            r0, vjp_fn = vjp(res_extra, zeros(s, 6), zeros(n, 6), zeros(extra_dim))
-            _, jt_vjp = vjp(vjp_fn, torch.zeros_like(r0))
-            grad = tuple(a + b for a, b in zip(grad, vjp_fn(r0)))
-            hv_spa = hv
-
-            def hv(v, hv_spa=hv_spa, vjp_fn=vjp_fn, jt_vjp=jt_vjp):
-                return tuple(a + b for a, b in zip(hv_spa(v), vjp_fn(jt_vjp(tuple(v))[0])))
-
-        # Exact Jacobi preconditioner diag(J^T J): the SPA blocks' column
-        # sums of squares; the node-node, fixed-frame and landmark rows add
-        # closed-form weights^2.
-        diag_s = segment_sum((j_s ** 2).sum(1), by_submap)
-        diag_n = segment_sum((j_n ** 2).sum(1), by_node)
-        tw2 = torch.where(d.nn_valid, d.nn_trans_weight ** 2, 0.0)
-        rw2 = torch.where(d.nn_valid, d.nn_rot_weight ** 2, 0.0)
-        for idx in (d.nn_first, d.nn_second):
-            _diag_add_(diag_n, idx, slice(0, 3), tw2)
-            _diag_add_(diag_n, idx, slice(3, 6), rw2)
-        _diag_add_(diag_n, d.ff_node, slice(0, 3), torch.where(d.ff_valid, d.ff_weight ** 2, 0.0))
-        a_lm = d.lm_alpha
-        ltw2 = torch.where(d.lm_valid, d.lm_trans_weight ** 2, 0.0)
-        lrw2 = torch.where(d.lm_valid, d.lm_rot_weight ** 2, 0.0)
-        _diag_add_(diag_n, d.lm_node, slice(0, 3), ltw2 * (1.0 - a_lm) ** 2)
-        _diag_add_(diag_n, d.lm_node2, slice(0, 3), ltw2 * a_lm ** 2)
-        _diag_add_(diag_n, d.lm_node, slice(3, 6), lrw2 * (1.0 - a_lm) ** 2)
-        _diag_add_(diag_n, d.lm_node2, slice(3, 6), lrw2 * a_lm ** 2)
-        precond = (1.0 / torch.clamp(diag_s, min=1e-6), 1.0 / torch.clamp(diag_n, min=1e-6),
-                   torch.ones(extra_dim, dtype=torch.float32, device=dev))
-
-        x = (zeros(s, 6), zeros(n, 6), zeros(extra_dim))
-        r = tuple(-g for g in grad)
+    x = (zeros(s, 6), zeros(n, 6), zeros(extra_dim))
+    r = tuple(-g for g in grad)
+    z = tuple(ri * pi for ri, pi in zip(r, precond))
+    p = z
+    rz = dot(r, z)
+    for _ in range(cg_iterations):
+        hp = tuple(h + 1e-8 * pi for h, pi in zip(hv(p), p))
+        alpha = rz / torch.clamp(dot(p, hp), min=1e-12)
+        x = tuple(xi + alpha * pi for xi, pi in zip(x, p))
+        r = tuple(ri - alpha * hi for ri, hi in zip(r, hp))
         z = tuple(ri * pi for ri, pi in zip(r, precond))
-        p = z
-        rz = dot(r, z)
-        for _ in range(cg_iterations):
-            hp = tuple(h + 1e-8 * pi for h, pi in zip(hv(p), p))
-            alpha = rz / torch.clamp(dot(p, hp), min=1e-12)
-            x = tuple(xi + alpha * pi for xi, pi in zip(x, p))
-            r = tuple(ri - alpha * hi for ri, hi in zip(r, hp))
-            z = tuple(ri * pi for ri, pi in zip(r, precond))
-            rz_new = dot(r, z)
-            beta = rz_new / torch.clamp(rz, min=1e-12)
-            p = tuple(zi + beta * pi for zi, pi in zip(z, p))
-            rz = rz_new
-        ds = x[0] * submap_mask
-        dn = x[1] * node_mask
-        de = x[2] * lm_free
-        d = d._replace(
-            submap_q=quat_normalize(quat_multiply(quat_from_axis_angle(ds[:, 3:6]), d.submap_q)),
-            submap_t=d.submap_t + ds[:, 0:3],
-            node_q=quat_normalize(quat_multiply(quat_from_axis_angle(dn[:, 3:6]), d.node_q)),
-            node_t=d.node_t + dn[:, 0:3],
-            # landmark poses persist; the fixed-frame origin is re-solved
-            lm_positions=d.lm_positions + de[3:3 + 3 * k_lm].reshape(-1, 3),
-            lm_q=quat_normalize(quat_multiply(quat_from_axis_angle(de[3 + 3 * k_lm:].reshape(-1, 3)),
-                                              d.lm_q)),
-        )
-    return d
+        rz_new = dot(r, z)
+        beta = rz_new / torch.clamp(rz, min=1e-12)
+        p = tuple(zi + beta * pi for zi, pi in zip(z, p))
+        rz = rz_new
+    ds = x[0] * submap_mask
+    dn = x[1] * node_mask
+    de = x[2] * lm_free
+    return d._replace(
+        submap_q=quat_normalize(quat_multiply(quat_from_axis_angle(ds[:, 3:6]), d.submap_q)),
+        submap_t=d.submap_t + ds[:, 0:3],
+        node_q=quat_normalize(quat_multiply(quat_from_axis_angle(dn[:, 3:6]), d.node_q)),
+        node_t=d.node_t + dn[:, 0:3],
+        # landmark poses persist; the fixed-frame origin is re-solved
+        lm_positions=d.lm_positions + de[3:3 + 3 * k_lm].reshape(-1, 3),
+        lm_q=quat_normalize(quat_multiply(quat_from_axis_angle(de[3 + 3 * k_lm:].reshape(-1, 3)),
+                                          d.lm_q)),
+    )

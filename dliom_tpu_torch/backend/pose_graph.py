@@ -24,6 +24,31 @@ departs from the JAX package on purpose in three places:
     for the first one's grids instead of decompressing again.
 The JAX package's mesh sharding of the search and the solve is not ported
 (one card).
+
+Compiled programs. The JAX package jits the search's programs and the SPA
+solve; here each is a `common/graph.py::StepGraph` (on the card one eager
+warm-up, one CUDA graph capture, then a replay per call; on the CPU the same
+buffers run eagerly). The pose graph owns them, and they go with it:
+  * per thread that searches (`_Programs`: a pool worker, or the caller's
+    thread where there is no pool): decompress and pyramid, one graph per
+    compressed shape; the searches with refinement, one graph per kind
+    (with-initial, full-submap) and chunk shape; the projection of a submap
+    image; the image proposals, one graph per candidate count. Their graphs
+    share one memory pool (`SharedPool`), since one thread replays them one
+    after another. The searches and the projection read one set of static
+    grids per thread, into which the cached grids of the target submap are
+    copied; a graph's result is its buffer, so what is kept (the grid
+    cache's entries, a chunk's packed result) is copied off it before the
+    next replay is queued. A submap query's projection (`submap_query`, on
+    whatever thread asks) runs eagerly and makes no program;
+  * per problem shape and blocks: one Gauss-Newton step of the SPA,
+    replayed `iterations` times, with a private pool and a lock held for a
+    whole solve: the periodic solve runs on a pool thread, the final one on
+    the caller's thread, never at once, and a solve ends with its host
+    read, so the next one, on whatever stream, starts after it.
+The bodies (`decompress_body`, `search_body`, `project_body`,
+`propose_body`, `spa_body`) are module functions: run eagerly on fresh
+tensors, they are what the programs are held to.
 """
 
 from __future__ import annotations
@@ -42,15 +67,24 @@ import torch
 from dliom_tpu_torch.backend import fast_correlative as fc
 from dliom_tpu_torch.backend import optimization as opt
 from dliom_tpu_torch.backend.compression import CompressedGrid, compress, decompress
-from dliom_tpu_torch.backend.precomputation import build_pyramid
+from dliom_tpu_torch.backend.precomputation import Pyramid, build_pyramid
 from dliom_tpu_torch.backend.submap_projection import (
     SubmapImage,
+    keep_fft_plans,
+    meters_per_pixel,
     project_to_image,
     propose_2d_transform,
     proposal_to_initial_guess,
 )
-from dliom_tpu_torch.common.config import PoseGraphConfig, TrajectoryBuilderConfig
+from dliom_tpu_torch.common.config import (
+    ConstraintBuilderConfig,
+    OptimizationProblemConfig,
+    PoseGraphConfig,
+    TrajectoryBuilderConfig,
+)
 from dliom_tpu_torch.common.device import get_device
+from dliom_tpu_torch.common.graph import SharedPool, StepGraph, sum_counts
+from dliom_tpu_torch.mapping.grid import GridSpec
 from dliom_tpu_torch.mapping.submap import grid_specs
 from dliom_tpu_torch.ops.rotational_histogram import np_rotate_histogram
 from dliom_tpu_torch.ops.scan_matcher import match_batch as gn_match_batch
@@ -116,6 +150,175 @@ class Constraint:
     yaw_correction: float = 0.0  # INTER: yaw moved from the initial guess (rad)
 
 
+# ----- compiled programs (see the module docstring) -----
+
+SEARCH_KINDS = ("search_initial", "search_full")
+_POSE_FIELDS = ("submap_q", "submap_t", "node_q", "node_t", "lm_positions", "lm_q")
+
+
+def _grid_leaves(grids):
+    """The static grids' tensors: (g_hi, g_lo, pyramid levels)."""
+    g_hi, g_lo, levels = grids
+    return (g_hi, g_lo, *levels)
+
+
+class _Programs:
+    """One thread's compiled search programs of a pose graph: the graphs by
+    key, the memory pool they share, and the static grids the searches and
+    the projection read."""
+
+    def __init__(self):
+        self.graphs: Dict[tuple, StepGraph] = {}
+        self.pool = SharedPool()
+        self.grids = None  # (g_hi, g_lo, levels)
+        self.loaded = None  # the cached grids now copied into them
+
+    def graph(self, key: tuple, name: str, body, adopt=lambda s: ()) -> StepGraph:
+        """The graph of `key`, made of `body()` at its first call."""
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = StepGraph(body(), adopt=adopt, pool=self.pool, name=name)
+        return g
+
+    def load_grids(self, hit) -> None:
+        """Copy a submap's cached (g_hi, g_lo, pyramid) into the static
+        grids, unless they hold them already."""
+        g_hi, g_lo, pyr = hit
+        if self.grids is None:
+            self.grids = (g_hi.clone(), g_lo.clone(), tuple(x.clone() for x in pyr.levels))
+        elif self.loaded is not hit:
+            for s, x in zip(_grid_leaves(self.grids), (g_hi, g_lo, *pyr.levels)):
+                s.copy_(x)
+        self.loaded = hit
+
+
+def _refine(cb: ConstraintBuilderConfig, specs, poses: Rigid3, g_hi, g_lo, hp, hm, lp, lm):
+    loop_cfg = cb.ceres_scan_matcher
+    return gn_match_batch(
+        poses, clouds=[(hp, hm), (lp, lm)], grids=[g_hi, g_lo], specs=list(specs),
+        occupied_space_weights=[loop_cfg.occupied_space_weight_0, loop_cfg.occupied_space_weight_1],
+        translation_weight=loop_cfg.translation_weight,
+        rotation_weight=loop_cfg.rotation_weight,
+        only_optimize_yaw=loop_cfg.only_optimize_yaw,
+        max_iterations=loop_cfg.max_num_iterations,
+        function_tolerance=loop_cfg.function_tolerance,
+    )
+
+
+def _refine_and_pack(cb, specs, res, g_hi, g_lo, hp, hm, lp, lm) -> torch.Tensor:
+    """The batched GN refinement of the correlative results, packed (B, 9):
+    found, score, refined rotation (4), refined translation (3)."""
+    poses = Rigid3(torch.stack([r.pose.rotation for r in res]),
+                   torch.stack([r.pose.translation for r in res]))
+    refined = _refine(cb, specs, poses, g_hi, g_lo, hp, hm, lp, lm)
+    found = torch.stack([r.found for r in res]).to(torch.float32)
+    score = torch.stack([r.score for r in res])
+    return torch.cat([found[:, None], score[:, None], refined.pose.rotation,
+                      refined.pose.translation], dim=1)
+
+
+def search_body(kind: str, cb: ConstraintBuilderConfig, hi_spec: GridSpec, lo_spec: GridSpec):
+    """`body(grids, inp) -> (grids, packed)` of one chunk's search program:
+    the correlative match of each of the B nodes in turn (as the eager
+    search does), then the batched GN refinement of all of them. `grids` is
+    (g_hi, g_lo, pyramid levels); `inp` the chunk's (B, ...) node arrays
+    and the submap histogram: high points, mask, low points, mask, then for
+    "search_initial" the initial rotation and translation, the histogram
+    and the initial yaw, for "search_full" the rotation guess and the
+    histogram."""
+    specs = (hi_spec, lo_spec)
+    if kind == "search_initial":
+        fc_cfg = cb.fast_correlative_scan_matcher
+        n_yaw = int(cb.with_initial_num_yaw_candidates)
+        if n_yaw > 1:
+            fc_cfg = dataclasses.replace(fc_cfg, angular_search_window=float(cb.with_initial_yaw_window))
+
+        def body(grids, inp):
+            g_hi, g_lo, levels = grids
+            pyr = Pyramid(levels=tuple(levels))
+            hp, hm, lp, lm, initial_q, initial_t, hist, yaw0, submap_hist = inp
+            res = [fc.match(pyr, hi_spec, g_lo, lo_spec, hp[i], hm[i], lp[i], lm[i],
+                            Rigid3(initial_q[i], initial_t[i]), hist[i], submap_hist, yaw0[i],
+                            fc_cfg, float(cb.min_score), num_angles=n_yaw, use_rotational_gate=False,
+                            beam_width=160, coarse_point_stride=int(cb.coarse_scoring_stride))
+                   for i in range(hp.shape[0])]
+            return grids, _refine_and_pack(cb, specs, res, g_hi, g_lo, hp, hm, lp, lm)
+    elif kind == "search_full":
+        def body(grids, inp):
+            g_hi, g_lo, levels = grids
+            pyr = Pyramid(levels=tuple(levels))
+            hp, hm, lp, lm, rot, hist, submap_hist = inp
+            res = [fc.match_full_submap(pyr, hi_spec, g_lo, lo_spec, hp[i], hm[i], lp[i], lm[i],
+                                        rot[i], hist[i], submap_hist, cb.fast_correlative_scan_matcher,
+                                        float(cb.global_localization_min_score), beam_width=1024,
+                                        coarse_point_stride=int(cb.coarse_scoring_stride))
+                   for i in range(hp.shape[0])]
+            return grids, _refine_and_pack(cb, specs, res, g_hi, g_lo, hp, hm, lp, lm)
+    else:
+        raise ValueError(f"search kind {kind!r} is not one of {SEARCH_KINDS}")
+    return body
+
+
+def decompress_body(hi_spec: GridSpec, lo_spec: GridSpec, depth: int, full_resolution_depth: int):
+    """`body((), (hi indices, hi values, lo indices, lo values)) -> ((),
+    (g_hi, g_lo, pyramid levels))`: a finished submap's dense grids and the
+    max-pool pyramid of its high grid."""
+    def body(state, inp):
+        hi_idx, hi_val, lo_idx, lo_val = inp
+        g_hi = decompress(CompressedGrid(hi_idx, hi_val, None), hi_spec)
+        g_lo = decompress(CompressedGrid(lo_idx, lo_val, None), lo_spec)
+        pyr = build_pyramid(g_hi, hi_spec, depth=depth, full_resolution_depth=full_resolution_depth)
+        return state, (g_hi, g_lo, pyr.levels)
+    return body
+
+
+def project_body(spec: GridSpec, size: int):
+    """`body(grids, ()) -> (grids, image)`: the top-down image of the
+    static high grid."""
+    def body(grids, inp):
+        return grids, project_to_image(grids[0], spec, size).image
+    return body
+
+
+def propose_body(meters: float, num_yaw: int):
+    """`body((), (anchors (n, S, S), other (S, S))) -> ((), (n, 4))`: per
+    anchor image, the proposal (yaw, shift x, shift y, score) aligning
+    `other` onto it."""
+    def body(state, inp):
+        anchors, other = inp
+        b = SubmapImage(other, meters)
+        rows = []
+        for i in range(anchors.shape[0]):
+            p = propose_2d_transform(SubmapImage(anchors[i], meters), b, num_yaw=num_yaw)
+            rows.append(torch.stack([p.yaw, p.shift_xy[0], p.shift_xy[1], p.score]))
+        return state, torch.stack(rows)
+    return body
+
+
+def _spa_settings(op: OptimizationProblemConfig, blocks) -> dict:
+    """The pose graph's `optimization.gn_step` / `solve` settings."""
+    return dict(cg_iterations=64, fix_first_submap=False, ff_huber_scale=float(op.huber_scale),
+                inter_huber_scale=float(op.huber_scale) if op.use_inter_huber else 0.0, blocks=blocks)
+
+
+def spa_body(op: OptimizationProblemConfig, blocks):
+    """`body(poses, problem) -> (poses, None)`: one GN step of the SPA
+    (`optimization.gn_step`) from the poses `_POSE_FIELDS` of the state,
+    the rest of the problem from the input."""
+    kw = _spa_settings(op, blocks)
+
+    def body(poses, problem):
+        d = opt.gn_step(problem._replace(**dict(zip(_POSE_FIELDS, poses))), **kw)
+        return tuple(getattr(d, f) for f in _POSE_FIELDS), None
+    return body
+
+
+def spa_solve_eager(op: OptimizationProblemConfig, problem: opt.PoseGraphData, iterations: int, blocks):
+    """`optimization.solve` with the pose graph's settings: what the SPA
+    graph's replays are held to."""
+    return opt.solve(problem, iterations=iterations, **_spa_settings(op, blocks))
+
+
 class PoseGraph:
     """Host orchestrator (PoseGraph3D API surface)."""
 
@@ -154,8 +357,11 @@ class PoseGraph:
         self._phase_lock = threading.Lock()
         self._grid_cache: "collections.OrderedDict[int, tuple]" = collections.OrderedDict()
         self._grid_inflight: Dict[int, threading.Event] = {}
-        self._streams = threading.local()
+        self._streams: Dict[int, torch.cuda.Stream] = {}  # thread id -> the worker's stream
         self._last_landmark_positions = None
+        self._programs_by_thread: Dict[int, _Programs] = {}
+        self._spa_graphs: Dict[tuple, Tuple[threading.Lock, StepGraph]] = {}
+        self._programs_lock = threading.Lock()
 
     def _phase(self, name: str, seconds: float) -> None:
         with self._phase_lock:
@@ -184,9 +390,12 @@ class PoseGraph:
         ready.record(torch.cuda.current_stream(dev))
 
         def run():
-            stream = getattr(self._streams, "stream", None)
-            if stream is None:
-                stream = self._streams.stream = torch.cuda.Stream(dev)
+            # keyed by thread id: a native worker's threading.local is new
+            # for every task
+            with self._phase_lock:
+                stream = self._streams.get(threading.get_ident())
+                if stream is None:
+                    stream = self._streams[threading.get_ident()] = torch.cuda.Stream(dev)
             with torch.cuda.device(dev), torch.cuda.stream(stream):
                 stream.wait_event(ready)
                 try:
@@ -200,7 +409,9 @@ class PoseGraph:
         self._pool.add_task(self._device_task(fn))
 
     def _host(self, t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy()
+        """A host copy of `t` (never a view: on the CPU a program's result
+        is its buffer, which the next call rewrites)."""
+        return t.detach().to("cpu", copy=True).numpy()
 
     def _decompressed_grids(self, to_id: int):
         """(g_hi, g_lo, pyramid) of a finished submap, LRU-cached on the
@@ -223,12 +434,7 @@ class PoseGraph:
                 t0 = _time.perf_counter()
                 sub = self.submaps[to_id]
                 self._borrow(*sub.high, *sub.low)
-                fc_cfg = self.cfg.constraint_builder.fast_correlative_scan_matcher
-                g_hi = decompress(sub.high, self._hi_spec)
-                g_lo = decompress(sub.low, self._lo_spec)
-                pyr = build_pyramid(g_hi, self._hi_spec, depth=fc_cfg.branch_and_bound_depth,
-                                    full_resolution_depth=fc_cfg.full_resolution_depth)
-                hit = (g_hi, g_lo, pyr)
+                hit = self._decompress(sub)
                 if self._on_cuda():
                     torch.cuda.current_stream(self.device).synchronize()
                 self._phase("search_decompress", _time.perf_counter() - t0)
@@ -453,56 +659,92 @@ class PoseGraph:
         out.sort()
         return [sid for _, sid in out[: self.cfg.num_close_submaps_loop_with_initial_value]]
 
-    def _refine(self, poses: Rigid3, g_hi, g_lo, hp, hm, lp, lm):
-        loop_cfg = self.cfg.constraint_builder.ceres_scan_matcher
-        return gn_match_batch(
-            poses, clouds=[(hp, hm), (lp, lm)], grids=[g_hi, g_lo],
-            specs=[self._hi_spec, self._lo_spec],
-            occupied_space_weights=[loop_cfg.occupied_space_weight_0,
-                                    loop_cfg.occupied_space_weight_1],
-            translation_weight=loop_cfg.translation_weight,
-            rotation_weight=loop_cfg.rotation_weight,
-            only_optimize_yaw=loop_cfg.only_optimize_yaw,
-            max_iterations=loop_cfg.max_num_iterations,
-            function_tolerance=loop_cfg.function_tolerance,
-        )
+    # ----- compiled programs -----
 
-    def _search_batch(self, pyr, g_hi, g_lo, hp, hm, lp, lm, initial_q, initial_t, hist,
-                      submap_hist, yaw0, min_score: float) -> torch.Tensor:
-        """The combined search program of one chunk: the with-initial
-        correlative match of every node, then the batched GN refinement of
-        all of them. Returns one packed (B, 9) tensor: found, score,
-        refined rotation (4), refined translation (3)."""
-        cb = self.cfg.constraint_builder
-        fc_cfg = cb.fast_correlative_scan_matcher
-        n_yaw = int(cb.with_initial_num_yaw_candidates)
-        if n_yaw > 1:
-            fc_cfg = dataclasses.replace(fc_cfg, angular_search_window=float(cb.with_initial_yaw_window))
-        res = [fc.match(pyr, self._hi_spec, g_lo, self._lo_spec, hp[i], hm[i], lp[i], lm[i],
-                        Rigid3(initial_q[i], initial_t[i]), hist[i], submap_hist, yaw0[i],
-                        fc_cfg, min_score, num_angles=n_yaw, use_rotational_gate=False,
-                        beam_width=160, coarse_point_stride=int(cb.coarse_scoring_stride))
-               for i in range(hp.shape[0])]
-        return self._refine_and_pack(res, g_hi, g_lo, hp, hm, lp, lm)
+    def _programs(self) -> _Programs:
+        """The calling thread's search programs (keyed by thread id: a native
+        worker's threading.local is new for every task)."""
+        with self._programs_lock:
+            prog = self._programs_by_thread.get(threading.get_ident())
+            if prog is None:
+                prog = self._programs_by_thread[threading.get_ident()] = _Programs()
+        return prog
 
-    def _search_full_batch(self, pyr, g_hi, g_lo, hp, hm, lp, lm, rot, hist, submap_hist,
-                           min_score: float) -> torch.Tensor:
-        cb = self.cfg.constraint_builder
-        res = [fc.match_full_submap(pyr, self._hi_spec, g_lo, self._lo_spec, hp[i], hm[i], lp[i],
-                                    lm[i], rot[i], hist[i], submap_hist,
-                                    cb.fast_correlative_scan_matcher, min_score, beam_width=1024,
-                                    coarse_point_stride=int(cb.coarse_scoring_stride))
-               for i in range(hp.shape[0])]
-        return self._refine_and_pack(res, g_hi, g_lo, hp, hm, lp, lm)
+    def _decompress(self, sub: SubmapRecord):
+        """(g_hi, g_lo, pyramid) of a finished submap: new tensors (the
+        graph's result copied off its buffers)."""
+        fc_cfg = self.cfg.constraint_builder.fast_correlative_scan_matcher
+        inp = (sub.high.indices, sub.high.values, sub.low.indices, sub.low.values)
+        g = self._programs().graph(
+            ("decompress",) + tuple(x.shape for x in inp), "decompress",
+            lambda: decompress_body(self._hi_spec, self._lo_spec, fc_cfg.branch_and_bound_depth,
+                                    fc_cfg.full_resolution_depth))
+        g_hi, g_lo, levels = g((), inp)[1]
+        return g_hi.clone(), g_lo.clone(), Pyramid(levels=tuple(x.clone() for x in levels))
 
-    def _refine_and_pack(self, res, g_hi, g_lo, hp, hm, lp, lm) -> torch.Tensor:
-        poses = Rigid3(torch.stack([r.pose.rotation for r in res]),
-                       torch.stack([r.pose.translation for r in res]))
-        refined = self._refine(poses, g_hi, g_lo, hp, hm, lp, lm)
-        found = torch.stack([r.found for r in res]).to(torch.float32)
-        score = torch.stack([r.score for r in res])
-        return torch.cat([found[:, None], score[:, None], refined.pose.rotation,
-                          refined.pose.translation], dim=1)
+    def _search(self, kind: str, hit, arrays) -> torch.Tensor:
+        """One chunk's search program (`search_body`) against the cached
+        grids `hit` of its target submap, from the chunk's host arrays; the
+        packed (B, 9) result, a new tensor."""
+        prog = self._programs()
+        g = prog.graph((kind,) + tuple(a.shape for a in arrays), kind,
+                       lambda: search_body(kind, self.cfg.constraint_builder, self._hi_spec, self._lo_spec),
+                       adopt=_grid_leaves)
+        prog.load_grids(hit)
+        if g.state is None:
+            g.bind(prog.grids, [self._stage_array(a) for a in arrays])
+        g.stage_input(arrays)  # one host-to-device copy
+        g.step()
+        return g.result.clone()
+
+    def _project(self, hit) -> torch.Tensor:
+        """The top-down image of the high grid of `hit`."""
+        size = self.cfg.constraint_builder.image_proposal_size
+        prog = self._programs()
+        g = prog.graph(("project", size), "project", lambda: project_body(self._hi_spec, size),
+                       adopt=_grid_leaves)
+        prog.load_grids(hit)
+        if g.state is None:
+            g.bind(prog.grids, ())
+        g.step()
+        return g.result
+
+    def _propose(self, anchors: np.ndarray, other: np.ndarray, meters: float) -> np.ndarray:
+        """(n, 4) host proposals (yaw, shift x, shift y, score) aligning the
+        image `other` onto each of `anchors` (n, S, S): one replay, one
+        read back."""
+        num_yaw = self.cfg.constraint_builder.image_proposal_num_yaw
+        arrays = (np.asarray(anchors, np.float32), np.asarray(other, np.float32))
+        g = self._programs().graph(("propose", meters, num_yaw) + tuple(a.shape for a in arrays), "propose",
+                                   lambda: propose_body(meters, num_yaw))
+        if g.state is None:
+            if self._on_cuda():
+                keep_fft_plans(self.device)  # a live graph reads its cuFFT plans
+            g.bind((), [self._stage_array(a) for a in arrays])
+        g.stage_input(arrays)
+        g.step()
+        return self._host(g.result)
+
+    def _stage_array(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def programs(self) -> Dict[str, List[Tuple[tuple, StepGraph]]]:
+        """Every compiled program this pose graph made, by name: (key,
+        graph), the key naming its shapes."""
+        out: Dict[str, list] = collections.defaultdict(list)
+        with self._programs_lock:
+            for prog in self._programs_by_thread.values():
+                for key, g in prog.graphs.items():
+                    out[g.name].append((key, g))
+            for key, (_, g) in self._spa_graphs.items():
+                out[g.name].append((key, g))
+        return dict(out)
+
+    def graph_counts(self) -> Dict[str, Dict[str, int]]:
+        """The compiled programs' steps, warm-ups, captures and replays by
+        program (decompress, the two searches, project, propose, spa),
+        summed over the threads that ran them."""
+        return {name: sum_counts(g for _, g in gs) for name, gs in sorted(self.programs().items())}
 
     def _global_candidates(self, from_id: int) -> List[int]:
         """Finished submaps of other trajectories not (or long not)
@@ -531,12 +773,14 @@ class PoseGraph:
         finally:
             self.constraint_search_seconds.append(_time.perf_counter() - t0)
 
-    def _stage(self, arrays) -> torch.Tensor:
-        """One chunk's per-node arrays as one (B, ...) tensor on the device.
-        Unlike the JAX package, chunks are not padded to a power of two:
-        nothing here recompiles, and each padded lane would run a whole
-        branch-and-bound."""
-        return torch.from_numpy(np.stack([np.asarray(x) for x in arrays])).to(self.device)
+    @staticmethod
+    def _stack(arrays, dtype=None) -> np.ndarray:
+        """One chunk's per-node arrays as one (B, ...) host array. Unlike
+        the JAX package, chunks are not padded to a power of two: each
+        padded lane would run a whole branch-and-bound, and the chunk sizes
+        (so the graphs per kind) are bounded by
+        `max_nodes_per_search_dispatch`."""
+        return np.stack([np.asarray(x, dtype) for x in arrays])
 
     def _compute_constraints_for_submap_impl(self, from_id: int) -> int:
         """ComputeConstraintsBetweenSubmaps (constraint_builder_3d.cc:162):
@@ -573,8 +817,8 @@ class PoseGraph:
             ]
             if not node_ids:
                 continue
-            g_hi, g_lo, pyr = self._decompressed_grids(to_id)
-            submap_hist = torch.from_numpy(np.asarray(to_sub.histogram, np.float32)).to(self.device)
+            hit = self._decompressed_grids(to_id)
+            submap_hist = np.asarray(to_sub.histogram, np.float32)
             initials = []
             for node_id in node_ids:
                 node = self.nodes[node_id]
@@ -591,19 +835,17 @@ class PoseGraph:
                 initials_c = initials[lo_i:lo_i + chunk]
                 nodes = [self.nodes[n] for n in ids_c]
                 t_dp = _time.perf_counter()
-                out = self._search_batch(
-                    pyr, g_hi, g_lo,
-                    self._stage([n.high_points for n in nodes]),
-                    self._stage([n.high_mask for n in nodes]),
-                    self._stage([n.low_points for n in nodes]),
-                    self._stage([n.low_mask for n in nodes]),
-                    self._stage([np.asarray(i.rotation, np.float32) for i in initials_c]),
-                    self._stage([np.asarray(i.translation, np.float32) for i in initials_c]),
-                    self._stage([n.histogram for n in nodes]),
-                    submap_hist,
-                    self._stage([np.float32(np_quat_yaw(np.asarray(i.rotation, np.float64)))
-                                 for i in initials_c]),
-                    min_score=float(cb.min_score))
+                out = self._search("search_initial", hit, (
+                    self._stack([n.high_points for n in nodes], np.float32),
+                    self._stack([n.high_mask for n in nodes], bool),
+                    self._stack([n.low_points for n in nodes], np.float32),
+                    self._stack([n.low_mask for n in nodes], bool),
+                    self._stack([i.rotation for i in initials_c], np.float32),
+                    self._stack([i.translation for i in initials_c], np.float32),
+                    self._stack([n.histogram for n in nodes], np.float32),
+                    self._stack([np_quat_yaw(np.asarray(i.rotation, np.float64)) for i in initials_c],
+                                np.float32),
+                    submap_hist))
                 self._phase("search_dispatch", _time.perf_counter() - t_dp)
                 pending.append(("loop", to_id, ids_c, initials_c, out))
 
@@ -613,8 +855,8 @@ class PoseGraph:
             node_ids = [n for n in sampled[::g_stride] if not self._has_constraint(to_id, n)]
             if not node_ids:
                 continue
-            g_hi, g_lo, pyr = self._decompressed_grids(to_id)
-            submap_hist = torch.from_numpy(np.asarray(to_sub.histogram, np.float32)).to(self.device)
+            hit = self._decompressed_grids(to_id)
+            submap_hist = np.asarray(to_sub.histogram, np.float32)
             if self._metrics:
                 for _ in node_ids:
                     self._metrics["constraints_searched"].add().increment()
@@ -623,19 +865,17 @@ class PoseGraph:
                 nodes = [self.nodes[n] for n in ids_c]
                 # roll/pitch-consistent rotation guess; yaw is irrelevant
                 # under the +-pi search
-                rots = self._stage([
-                    np_quat_multiply(np_quat_conjugate(np.asarray(to_sub.global_pose.rotation,
-                                                                  np.float64)),
-                                     np.asarray(n.global_pose.rotation, np.float64)).astype(np.float32)
-                    for n in nodes])
-                out = self._search_full_batch(
-                    pyr, g_hi, g_lo,
-                    self._stage([n.high_points for n in nodes]),
-                    self._stage([n.high_mask for n in nodes]),
-                    self._stage([n.low_points for n in nodes]),
-                    self._stage([n.low_mask for n in nodes]),
-                    rots, self._stage([n.histogram for n in nodes]), submap_hist,
-                    min_score=float(cb.global_localization_min_score))
+                to_q = np_quat_conjugate(np.asarray(to_sub.global_pose.rotation, np.float64))
+                rots = self._stack([np_quat_multiply(to_q, np.asarray(n.global_pose.rotation, np.float64))
+                                    for n in nodes], np.float32)
+                t_dp = _time.perf_counter()
+                out = self._search("search_full", hit, (
+                    self._stack([n.high_points for n in nodes], np.float32),
+                    self._stack([n.high_mask for n in nodes], bool),
+                    self._stack([n.low_points for n in nodes], np.float32),
+                    self._stack([n.low_mask for n in nodes], bool),
+                    rots, self._stack([n.histogram for n in nodes], np.float32), submap_hist))
+                self._phase("search_dispatch", _time.perf_counter() - t_dp)
                 pending.append(("GLOBAL", to_id, ids_c, None, out))
         self._phase("search_stage", _time.perf_counter() - t_st)
 
@@ -679,9 +919,9 @@ class PoseGraph:
         if s.image is not None or not s.finished or s.high is None:
             return s.image
         t0 = _time.perf_counter()
-        g_hi, _, _ = self._decompressed_grids(sid)
-        img = project_to_image(g_hi, self._hi_spec, self.cfg.constraint_builder.image_proposal_size)
-        s.image = SubmapImage(self._host(img.image), img.meters_per_pixel)
+        img = self._project(self._decompressed_grids(sid))
+        size = self.cfg.constraint_builder.image_proposal_size
+        s.image = SubmapImage(self._host(img), meters_per_pixel(self._hi_spec, size))
         self._phase("search_project", _time.perf_counter() - t0)
         return s.image
 
@@ -709,17 +949,11 @@ class PoseGraph:
         if not candidates:
             return {}
 
-        def dev_image(img: SubmapImage) -> SubmapImage:
-            return SubmapImage(torch.from_numpy(np.asarray(img.image)).to(self.device),
-                               img.meters_per_pixel)
-
-        from_img = dev_image(from_image)
-        props = []
-        for to_id in candidates:
-            p = propose_2d_transform(dev_image(self.submaps[to_id].image), from_img,
-                                     num_yaw=cb.image_proposal_num_yaw)
-            props.append(torch.stack([p.yaw, p.shift_xy[0], p.shift_xy[1], p.score]))
-        host = self._host(torch.stack(props))
+        meters = {float(self.submaps[sid].image.meters_per_pixel) for sid in candidates}
+        if len(meters) != 1:
+            raise ValueError(f"submap images of different scales {sorted(meters)}")
+        host = self._propose(np.stack([np.asarray(self.submaps[sid].image.image) for sid in candidates]),
+                             from_image.image, meters.pop())
         out = {}
         for to_id, (yaw, sx, sy, score) in zip(candidates, host):
             if float(score) >= cb.image_proposal_min_score:
@@ -750,10 +984,11 @@ class PoseGraph:
 
     # ----- optimization (RunOptimization, pose_graph_3d.cc:444-515, 722) -----
 
-    def _build_problem(self) -> Tuple[opt.PoseGraphData, int, int]:
+    def _build_problem(self) -> Tuple[Dict[str, np.ndarray], int, int, Tuple[bool, bool, bool]]:
         """The SPA problem from a consistent snapshot (counts taken under
-        the mutex; append-only lists read up to them). Returns (data on the
-        device, n_submaps, n_nodes)."""
+        the mutex; append-only lists read up to them). Returns (host arrays
+        by `PoseGraphData` field, in field order; n_submaps; n_nodes; which
+        of the node-node, fixed-frame and landmark blocks have rows)."""
         with self._mutex:
             submaps = self.submaps[: len(self.submaps)]
             nodes = self.nodes[: len(self.nodes)]
@@ -888,8 +1123,33 @@ class PoseGraph:
             nn_first=nnf, nn_second=nns, nn_q=nnq, nn_t=nnt, nn_trans_weight=nntw,
             nn_rot_weight=nnrw, nn_valid=nnv,
         )
-        data = opt.PoseGraphData(**{k: torch.from_numpy(v).to(self.device) for k, v in host.items()})
-        return data, len(submaps), len(nodes)
+        host = {k: host[k] for k in opt.PoseGraphData._fields}
+        return host, len(submaps), len(nodes), (bool(nnv.any()), bool(ffv.any()), bool(lmv.any()))
+
+    def _solve(self, problem: Dict[str, np.ndarray], iterations: int, blocks) -> np.ndarray:
+        """The SPA solve of the host problem: its submap, node and landmark
+        poses, flat on the host (one read). The GN-step graph of this
+        problem's shapes and blocks, its poses loaded from the staged
+        problem, replayed `iterations` times under the graph's lock."""
+        key = ("spa", blocks) + tuple(v.shape for v in problem.values())
+        with self._programs_lock:
+            if key not in self._spa_graphs:
+                self._spa_graphs[key] = (threading.Lock(), StepGraph(
+                    spa_body(self.cfg.optimization_problem, blocks), pool="own", name="spa"))
+            lock, g = self._spa_graphs[key]
+        with lock:
+            if g.state is None:
+                data = opt.PoseGraphData(**{k: self._stage_array(v) for k, v in problem.items()})
+                g.bind(tuple(getattr(data, f) for f in _POSE_FIELDS), data)
+            g.stage_input(list(problem.values()))  # one host-to-device copy
+            g.load_state(tuple(getattr(g.inp, f) for f in _POSE_FIELDS))
+            for _ in range(iterations):
+                g.step()
+            return self._read_poses(g.inp._replace(**dict(zip(_POSE_FIELDS, g.state))))
+
+    def _read_poses(self, d: opt.PoseGraphData) -> np.ndarray:
+        return self._host(torch.cat([d.submap_q.reshape(-1), d.submap_t.reshape(-1), d.node_q.reshape(-1),
+                                     d.node_t.reshape(-1), d.lm_positions.reshape(-1)]))
 
     def wait_for_all_computations(self) -> None:
         """WaitForAllComputations (pose_graph_3d.cc:517-533)."""
@@ -911,15 +1171,10 @@ class PoseGraph:
             self._nodes_since_optimization = 0
             return
         t0 = _time.perf_counter()
-        data, n_sub, n_node = self._build_problem()
         op = self.cfg.optimization_problem
-        out = opt.solve(data, iterations=iters, cg_iterations=64, fix_first_submap=False,
-                        ff_huber_scale=float(op.huber_scale),
-                        inter_huber_scale=float(op.huber_scale) if op.use_inter_huber else 0.0)
-        s_cap, n_cap = out.submap_q.shape[0], out.node_q.shape[0]
-        host = self._host(torch.cat([out.submap_q.reshape(-1), out.submap_t.reshape(-1),
-                                     out.node_q.reshape(-1), out.node_t.reshape(-1),
-                                     out.lm_positions.reshape(-1)]))
+        problem, n_sub, n_node, blocks = self._build_problem()
+        s_cap, n_cap = problem["submap_q"].shape[0], problem["node_q"].shape[0]
+        host = self._solve(problem, iters, blocks)
         o = 0
         parts = []
         for n in (s_cap * 4, s_cap * 3, n_cap * 4, n_cap * 3):
@@ -1000,10 +1255,13 @@ class PoseGraph:
             "global_pose_t": np.asarray(s.global_pose.translation, np.float32),
         }
         if s.finished and s.high is not None:
-            if self.cfg.constraint_builder.use_image_proposals:
-                img = self._submap_image(submap_id)
-            else:
-                g = project_to_image(decompress(s.high, self._hi_spec), self._hi_spec)
+            # projected eagerly where no search has: the asking thread keeps
+            # no program
+            img = s.image
+            if img is None:
+                cb = self.cfg.constraint_builder
+                kw = {"out_size": cb.image_proposal_size} if cb.use_image_proposals else {}
+                g = project_to_image(decompress(s.high, self._hi_spec), self._hi_spec, **kw)
                 img = SubmapImage(self._host(g.image), g.meters_per_pixel)
             out["texture"] = np.asarray(np.clip(np.asarray(img.image) * 255.0, 0, 255), np.uint8)
             out["meters_per_pixel"] = float(img.meters_per_pixel)

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dliom_tpu_torch.common.device import constant
 from dliom_tpu_torch.mapping import probability as pv
 from dliom_tpu_torch.mapping.grid import GridSpec
 from dliom_tpu_torch.transform.rigid import Rigid3, np_compose, np_rigid
@@ -26,17 +27,35 @@ class SubmapImage(NamedTuple):
     meters_per_pixel: float
 
 
+def _factor(spec: GridSpec, out_size: int) -> int:
+    return max(1, spec.extent // out_size)
+
+
+def meters_per_pixel(spec: GridSpec, out_size: int = 128) -> float:
+    """The pixel size of `project_to_image`'s image."""
+    return spec.resolution * _factor(spec, out_size)
+
+
+def keep_fft_plans(device: torch.device) -> None:
+    """Keep every cuFFT plan of `device` for the life of the process: a CUDA
+    graph that captured an FFT reads its plan's memory at every replay, and
+    PyTorch's plan cache would evict the plan once it held `max_size` plans.
+    The port makes a handful."""
+    cache = torch.backends.cuda.cufft_plan_cache[torch.device(device).index or 0]
+    cache.max_size = max(cache.max_size, 2**31 - 1)
+
+
 def project_to_image(values: torch.Tensor, spec: GridSpec, out_size: int = 128) -> SubmapImage:
     """Top-down projection: max probability over z, max-downsampled."""
     e = spec.extent
     g = pv.value_to_probability(values.reshape(e, e, e).to(torch.int32))
     img = torch.amax(g, dim=2)
     img = (img - pv.MIN_PROBABILITY) / (pv.MAX_PROBABILITY - pv.MIN_PROBABILITY)
-    factor = max(1, e // out_size)
+    factor = _factor(spec, out_size)
     if factor > 1:
         s = (e // factor) * factor
         img = img[:s, :s].reshape(s // factor, factor, s // factor, factor).amax(dim=(1, 3))
-    return SubmapImage(image=img.to(torch.float32), meters_per_pixel=spec.resolution * factor)
+    return SubmapImage(image=img.to(torch.float32), meters_per_pixel=meters_per_pixel(spec, out_size))
 
 
 def _rotate_image(img: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
@@ -78,7 +97,7 @@ def propose_2d_transform(anchor: SubmapImage, other: SubmapImage, num_yaw: int =
     dev = a.device
     # jnp.linspace(-w, w, n, endpoint=False) in float32
     yaws = (-yaw_window + torch.arange(num_yaw, dtype=torch.float32, device=dev)
-            * torch.tensor(2.0 * yaw_window / num_yaw, dtype=torch.float32, device=dev))
+            * constant(2.0 * yaw_window / num_yaw, torch.float32, dev))
     # image (row, col) = grid (x, y): a +yaw frame rotation is -yaw in pixels
     b = _rotate_image(other.image, -yaws)
     b = b - torch.mean(b, dim=(1, 2), keepdim=True)
@@ -88,14 +107,14 @@ def propose_2d_transform(anchor: SubmapImage, other: SubmapImage, num_yaw: int =
                         min=1e-6)
     xc = xc / denom[:, None, None]
     scores, idxs = torch.max(xc.reshape(num_yaw, -1), dim=1)
-    best = torch.argmax(scores)
-    idx = idxs[best]
+    best = torch.argmax(scores).reshape(1)  # (1,): a 0-dim index is read on the host
+    idx = idxs[best][0]
     dy = torch.div(idx, s, rounding_mode="floor")
     dx = idx - dy * s
     dy = torch.where(dy > s // 2, dy - s, dy)
     dx = torch.where(dx > s // 2, dx - s, dx)
     shift = torch.stack([dy, dx]).to(torch.float32) * anchor.meters_per_pixel
-    return Proposal(yaw=yaws[best], shift_xy=shift, score=scores[best])
+    return Proposal(yaw=yaws[best][0], shift_xy=shift, score=scores[best][0])
 
 
 def proposal_to_initial_guess(proposal: Proposal, node_pose_in_other: Rigid3) -> Rigid3:

@@ -10,18 +10,45 @@ tensors and its result into the static result. The banks (`adopt(state)`)
 are updated in place by the body and stay the caller's tensors; every
 other leaf of the state is copied once when the graph binds. State in and
 state out are the same tensors, so the body's intermediates live only in
-the graph's memory pool, and graphs of one device can share one pool
-(their replays run one after another on one stream).
+the graph's memory pool, and graphs replayed one after another can share
+one pool.
 
 On a CUDA state the first call is the warm-up: the body runs eagerly on the
 static buffers (it loads the kernel library, the K1 update tables, the
-cuBLAS/cuSOLVER handles and the constants of `common/device.py`), then the
-body is captured and every later call replays it. Capture runs under
-`capture_error_mode="thread_local"`, since other threads may run on the card
-meanwhile, and under `preferred_linalg_library("cusolver")`, since MAGMA's
-batched solves synchronize their stream. A capture that fails raises: a
-CUDA state never steps eagerly after the warm-up. On a CPU state every call
-runs the body eagerly through the same buffers and copies.
+cuBLAS/cuSOLVER/cuFFT handles and plans and the constants of
+`common/device.py`), then the body is captured and every later call
+replays it. A capture that fails raises: a CUDA state never steps eagerly
+after the warm-up. On a CPU state every call runs the body eagerly through
+the same buffers and copies.
+
+Captures may happen on any thread: the frontend's ingest thread captures
+the LIO step, the pose graph's pool workers capture their searches and
+solves while the frontend replays. So a capture
+  * runs on the calling thread's own stream (its current stream, or a side
+    stream of its own where that is the default stream, on which nothing
+    can be captured), never on a stream shared by the process;
+  * holds one process-wide capture lock from its begin to its end
+    (PyTorch takes one capture underway at a time in a process); the eager
+    warm-up runs outside the lock;
+  * runs under `capture_error_mode="thread_local"`, since other threads run
+    on the card meanwhile, and under `preferred_linalg_library("cusolver")`,
+    since MAGMA's batched solves synchronize their stream;
+  * runs with Python's cyclic garbage collector paused: a collection on the
+    capturing thread may destroy a dead graph, which CUDA refuses while the
+    thread's stream captures, and the capture is lost ("operation failed
+    due to a previous error during capture");
+  * synchronizes its own stream after it, not the device;
+  * goes into a memory pool chosen by the graph's `pool`: "device", one pool
+    per device shared by the graphs that replay one after another on the
+    frontend's stream; a `SharedPool`, shared by the graphs given it, which
+    one thread replays one after another (a pool worker's searches), and
+    freed with them; "own", a private pool (a graph that more than one
+    thread replays, one after another).
+
+A device-wide synchronize on any thread while a capture is underway loses
+that capture too (and raises on the synchronizing thread): the port
+synchronizes streams and events, never the device, where another thread
+may be capturing.
 
 The static result and state hold the last step's values until the next
 call: a caller that keeps any of them across a step copies it first.
@@ -29,11 +56,16 @@ call: a caller that keeps any of them across a step copies it first.
 The kernel wrappers count launches in Python, which a replay does not run.
 So each graph records the launches its capture made (and takes them back
 off the counters: a capture runs nothing) and adds them on every replay.
+The launches a capture records are its own thread's, and every change of
+a counter is made under one lock (`common/launches.py`): another thread's
+replays during the capture neither count nor get lost.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import threading
 import time
 from typing import Callable, Dict, Iterable, Optional
 
@@ -41,56 +73,146 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from dliom_tpu_torch.common import launches as _launches
 from dliom_tpu_torch.imu import affine_chain as ac
 from dliom_tpu_torch.ops import grouped_apply as ga
 
 # The kernel wrappers' launch counters, (module, global name).
 COUNTERS = ((ga, "LAUNCHES"), (ga, "DENSE_LAUNCHES"), (ac, "LAUNCHES"))
 _ALIGN = 16  # bytes: every input leaf starts on a 16-byte boundary of the flat buffer
-_POOLS: Dict[torch.device, tuple] = {}
+POOLS = ("device", "own")  # the named pools; a graph may also be given a SharedPool
+_CAPTURE_LOCK = threading.Lock()  # one capture at a time in the process
+_SIDE = threading.local()  # a thread's capture stream, where its current one is the default stream
+
+add_launches = _launches.add
 
 
 def launch_counts() -> Dict[str, int]:
     return {f"{mod.__name__}.{name}": getattr(mod, name) for mod, name in COUNTERS}
 
 
-def add_launches(delta: Dict[str, int]) -> None:
-    for mod, name in COUNTERS:
-        setattr(mod, name, getattr(mod, name) + delta.get(f"{mod.__name__}.{name}", 0))
+def _capture_stream(device: torch.device):
+    """The calling thread's own stream for a capture: its current stream, or
+    a side stream of its own where the current one is the default stream
+    (which cannot capture). A native pool thread, whose `threading.local`
+    is new for every task, takes a new one from PyTorch's stream pool per
+    task; the pose graph's tasks run on streams of their own anyway."""
+    cur = torch.cuda.current_stream(device)
+    if cur != torch.cuda.default_stream(device):
+        return cur
+    streams = _SIDE.__dict__.setdefault("streams", {})
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
 
 
-def shared_pool(device: torch.device):
-    """One graph memory pool per device, shared by the graphs replayed on it
-    one after another on one stream. A small anchor graph captured into it
-    lives as long as the process: a pool that outlives its graphs (a
-    capture's cuBLAS workspace stays allocated in it) cannot be shared by a
-    later capture unless a graph still holds it."""
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector off inside, as it was after. The
+    setting is the process's: captures, which hold the capture lock, are
+    the only ones to change it."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def capture(graph: "torch.cuda.CUDAGraph", pool: tuple, device: torch.device, fn: Callable) -> None:
+    """Capture fn() into `graph` on the calling thread's own stream, under
+    the process-wide capture lock and with the garbage collector paused,
+    into `pool` (a handle, or () for a private pool); then synchronize that
+    stream. Raises if fn or the capture fails."""
+    stream = _capture_stream(device)
+    cur = torch.cuda.current_stream(device)
+    with _CAPTURE_LOCK, _collector_paused():
+        if stream != cur:
+            stream.wait_stream(cur)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            graph.capture_begin(*pool, capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                raise
+            graph.capture_end()
+    stream.synchronize()
+
+
+class SharedPool:
+    """A graph memory pool shared by the graphs given it, which one thread
+    replays one after another on one stream. Made at the first capture into
+    it, with a small anchor graph that lives as long as this object: a pool
+    that outlives its graphs (a capture's cuBLAS workspace stays allocated
+    in it) cannot be shared by a later capture unless a graph still holds
+    it. Its memory goes back to the allocator with this object and its
+    graphs."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._handle = self._anchor = None
+
+    def handle(self, device: torch.device) -> tuple:
+        with self._lock:
+            if self._handle is None:
+                handle, anchor = torch.cuda.graph_pool_handle(), torch.cuda.CUDAGraph()
+                capture(anchor, (handle,), device, lambda: torch.zeros(1, device=device))
+                self._handle, self._anchor = handle, anchor
+            return (self._handle,)
+
+
+_DEVICE_POOLS: Dict[torch.device, SharedPool] = {}
+_DEVICE_POOLS_LOCK = threading.Lock()
+
+
+def pool_handle(pool, device: torch.device) -> tuple:
+    """The pool a graph of `pool` ("device", "own" or a SharedPool) captures
+    into: () for "own" (a private pool), else a handle shared by the
+    device's graphs, kept for the process, or by the SharedPool's."""
     device = torch.device(device)
-    if device not in _POOLS:
-        with torch.cuda.device(device):
-            handle = torch.cuda.graph_pool_handle()
-            anchor = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(anchor, pool=handle, capture_error_mode="thread_local"):
-                torch.zeros(1, device=device)
-            _POOLS[device] = (handle, anchor)
-    return _POOLS[device][0]
+    if pool == "own":
+        return ()
+    if pool == "device":
+        with _DEVICE_POOLS_LOCK:
+            pool = _DEVICE_POOLS.setdefault(device, SharedPool())
+    return pool.handle(device)
+
+
+def _check_pool(pool) -> None:
+    if not isinstance(pool, SharedPool) and pool not in POOLS:
+        raise ValueError(f"pool: {pool!r} is not one of {POOLS} or a SharedPool")
+
+
+_LINALG_LOCK = threading.Lock()
+_LINALG = {"users": 0, "prev": None}
 
 
 @contextlib.contextmanager
 def cusolver():
     """The CUDA linear algebra of the warm-up and the capture: cuSOLVER and
     cuBLAS, never MAGMA (whose batched solves synchronize their stream). An
-    eager step run under it takes the same routines as the graph. Nothing
-    where there is no card."""
+    eager step run under it takes the same routines as the graph. The
+    choice is the process's, so it is counted: it holds while any thread is
+    inside, and the previous choice comes back when the last one leaves.
+    Nothing where there is no card."""
     if not torch.cuda.is_available():
         yield
         return
-    prev = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
+    with _LINALG_LOCK:
+        if _LINALG["users"] == 0:
+            _LINALG["prev"] = torch.backends.cuda.preferred_linalg_library()
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+        _LINALG["users"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.preferred_linalg_library(prev)
+        with _LINALG_LOCK:
+            _LINALG["users"] -= 1
+            if _LINALG["users"] == 0:
+                torch.backends.cuda.preferred_linalg_library(_LINALG["prev"])
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -105,12 +227,17 @@ def _check_like(what: str, static: torch.Tensor, new: torch.Tensor) -> None:
 
 class StepGraph:
     """`body(state, inp) -> (state, result)` as a compiled step; see the
-    module docstring. Counts its steps and, on the card, its warm-ups,
-    captures and replays."""
+    module docstring. `pool` is one of POOLS or a SharedPool; `name` names
+    the program in reports. Counts its steps and, on the card, its
+    warm-ups, captures and replays."""
 
-    def __init__(self, body: Callable, adopt: Callable[[object], Iterable[torch.Tensor]] = lambda s: ()):
+    def __init__(self, body: Callable, adopt: Callable[[object], Iterable[torch.Tensor]] = lambda s: (),
+                 pool: str = "device", name: str = "step"):
+        _check_pool(pool)
         self.body = body
         self._adopt = adopt
+        self.pool = pool
+        self.name = name
         self.state = self.inp = self.result = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.steps = self.warmups = self.captures = self.replays = 0
@@ -121,7 +248,10 @@ class StepGraph:
 
     # ----- binding and copies -----
 
-    def _bind(self, state, inp) -> None:
+    def bind(self, state, inp) -> None:
+        """Make the static buffers from a state and an input of the step's
+        shapes (their values are loaded by `load_state` and `load_input` or
+        `stage_input`)."""
         adopted = {id(x) for x in self._adopt(state)}
         leaves, self._state_spec = tree_flatten(state)
         seen, out = set(), []
@@ -133,8 +263,8 @@ class StepGraph:
             out.append(x)
         self._state_leaves = out
         self.state = tree_unflatten(out, self._state_spec)
-        self.device = next(x.device for x in out if x is not None)
         in_leaves, self._in_spec = tree_flatten(inp)
+        self.device = next(x.device for x in out + in_leaves if x is not None)
         layout, total = [], 0
         for x in in_leaves:
             n = x.numel() * x.element_size()
@@ -217,7 +347,7 @@ class StepGraph:
 
     def __call__(self, state, inp):
         if self.state is None:
-            self._bind(state, inp)
+            self.bind(state, inp)
         else:
             self.load_state(state)
         self.load_input(inp)
@@ -247,12 +377,10 @@ class StepGraph:
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
-        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=shared_pool(self.device), capture_error_mode="thread_local"):
-            self._run()
-        torch.cuda.synchronize(self.device)
-        self.launches = {k: v - before[k] for k, v in launch_counts().items()}
+        with _launches.recording() as own:
+            capture(graph, pool_handle(self.pool, self.device), self.device, self._run)
+        self.launches = {k: own.get(k, 0) for k in launch_counts()}
         add_launches({k: -v for k, v in self.launches.items()})
         self.graph = graph
         self.captures += 1

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from dliom_tpu_torch import kernels
+from dliom_tpu_torch.common import launches
 
 # Kernel launches through `affine_chain` (plain-version calls not counted).
 LAUNCHES = 0
@@ -54,6 +55,5 @@ def affine_chain(f: torch.Tensor, q: torch.Tensor):
         fb.shape[0], fb.shape[1], stream,
     )
     kernels.check(err, "affine_chain")
-    global LAUNCHES
-    LAUNCHES += 1
+    launches.count(__name__, "LAUNCHES")
     return (a, p) if batched else (a[0], p[0])

@@ -16,6 +16,13 @@ As in the JAX package, poses accumulate (T_i = T_{i-1} * T_rel), which the
 alignment assumes; the reference stores (relative translation, accumulated
 rotation) (:296-300). Everything runs on `device`; the host reads one
 velocity per scan and the gate's and the solve's results.
+
+The NDT odometry (`build_field` of the last scan, then `ndt_match` of the
+current one) is one compiled program, as the JAX package jits it: a
+`common/graph.py::StepGraph` at ODOM_POINTS and ODOM_SPEC (on the card one
+eager warm-up, one capture, then a replay per scan). It runs on the thread
+that feeds the scans, the one thread that may use forward-mode AD
+(`ndt_match` takes its Jacobian with `jacfwd`).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from dliom_tpu_torch.common.config import TrajectoryBuilderConfig
 from dliom_tpu_torch.common.device import get_device
+from dliom_tpu_torch.common.graph import StepGraph
 from dliom_tpu_torch.imu import preintegration as pre
 from dliom_tpu_torch.imu.initialization import AlignmentInput, initialize_dynamic
 from dliom_tpu_torch.mapping.grid import GridSpec
@@ -39,6 +47,18 @@ from dliom_tpu_torch.transform.rigid import (
     quat_normalize,
     quat_rotate,
 )
+
+
+def odometry_body(spec: GridSpec):
+    """`body((), (last points, mask, current points, mask, guess rotation,
+    guess translation)) -> ((), (rotation, translation))`: the NDT field of
+    the last scan and the match of the current one against it."""
+    def body(state, inp):
+        last_pts, last_mask, cur_pts, cur_mask, q, t = inp
+        field = build_field(last_pts, last_mask, spec)
+        rel = ndt_match(field, spec, cur_pts, cur_mask, Rigid3(q, t))
+        return state, (rel.rotation, rel.translation)
+    return body
 
 
 class InitResult(NamedTuple):
@@ -56,6 +76,7 @@ class DynamicInitializer:
         self.device = get_device(device)
         self._frames = cfg.frames_for_dynamic_initialization
         self._noise = pre.noise_matrix(cfg.imu, self.device)
+        self.odometry_graph = StepGraph(odometry_body(self.ODOM_SPEC), name="ndt")
         self._reset()
 
     def _reset(self):
@@ -122,8 +143,7 @@ class DynamicInitializer:
         dt = stamp - self._last_stamp
         seg = self._segment_preint()
         guess = Rigid3(seg.delta_q, torch.from_numpy(self._lin_vel * dt).to(self.device))
-        field = build_field(self._last_points.points, self._last_points.mask, self.ODOM_SPEC)
-        rel = ndt_match(field, self.ODOM_SPEC, cur.points, cur.mask, guess)  # MatchByNDT :969
+        rel = self._odometry(self._last_points, cur, guess)  # MatchByNDT :969
         self._poses.append(self._poses[-1].compose(rel))
         self._preints.append(seg)
         self._lin_vel = rel.translation.cpu().numpy() / max(dt, 1e-6)
@@ -137,6 +157,13 @@ class DynamicInitializer:
             self._reset()
             self._start(stamp, cur)
         return result
+
+    def _odometry(self, last: FilteredCloud, cur: FilteredCloud, guess: Rigid3) -> Rigid3:
+        """The relative pose of `cur` in `last`'s frame from `guess` (the
+        compiled program's result, copied off its buffers)."""
+        _, (q, t) = self.odometry_graph((), (last.points, last.mask, cur.points, cur.mask,
+                                             guess.rotation, guess.translation))
+        return Rigid3(q.clone(), t.clone())
 
     def _excitation_ok(self, dvs: np.ndarray, dts: np.ndarray) -> bool:
         """VINS IMU-observability check (AlignWithWorld :1014-1042) on the

@@ -386,6 +386,7 @@ class _TrajectoryBuilder:
         finished = int(host["finished_submap"])
         if finished < 0:
             return None
+        t0 = _wall.perf_counter()
         slot = finished % 2
         sm_cfg = self.tb.submaps
         submaps = self._lio.frontend.submaps
@@ -403,6 +404,7 @@ class _TrajectoryBuilder:
         else:
             n = lo_spec.num_cells
             low = compress(submaps.low_values[slot * n:(slot + 1) * n], lo_spec, pg.low_compress_capacity)
+        pg._phase("compress", _wall.perf_counter() - t0)  # host time: the compressions are queued, not awaited
         return high, low
 
     def _finish_pending(self) -> Optional[dict]:
@@ -702,6 +704,13 @@ class MapBuilder:
         """The compiled steps' steps, warm-ups, captures and replays, summed
         over the trajectories."""
         return sum_counts(t._step for t in self._trajectories.values())
+
+    def graph_counts(self) -> Dict[str, Dict[str, int]]:
+        """Every compiled program's steps, warm-ups, captures and replays:
+        the step's (`step_counts`), the dynamic initializers' NDT odometry
+        and the pose graph's programs by name (`PoseGraph.graph_counts`)."""
+        ndt = [t._dyn_init.odometry_graph for t in self._trajectories.values() if t._dyn_init is not None]
+        return {"step": self.step_counts(), "ndt": sum_counts(ndt), **self.pose_graph.graph_counts()}
 
 
 def map_builder_from_state(path: str, config: EngineConfig, pure_localization: bool = True,

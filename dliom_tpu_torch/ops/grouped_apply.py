@@ -27,6 +27,7 @@ import threading
 import torch
 
 from dliom_tpu_torch import kernels
+from dliom_tpu_torch.common import launches
 from dliom_tpu_torch.mapping import probability as pv
 
 _SENTINEL = 2**31 - 1
@@ -189,8 +190,7 @@ def apply_grouped_rows(pool_flat, rows, starts, ends, cell_keys, *,
         num_steps, cells_per_group, stream,
     )
     kernels.check(err, "grouped_apply")
-    global LAUNCHES
-    LAUNCHES += 1
+    launches.count(__name__, "LAUNCHES")
     return pool_flat
 
 
@@ -315,7 +315,5 @@ def apply_grouped_updates(pool_flat, sorted_keys, *, num_groups: int, cells_per_
         miss_t.data_ptr(), lookback.data_ptr(), tiles, dropped.data_ptr(), num_groups, cb, stream,
     )
     kernels.check(err, "grouped_apply_dense")
-    global LAUNCHES, DENSE_LAUNCHES
-    LAUNCHES += 1
-    DENSE_LAUNCHES += 1
+    launches.count(__name__, "LAUNCHES", "DENSE_LAUNCHES")
     return pool_flat, dropped

@@ -28,7 +28,6 @@ The configs and scans are tests/test_torch_lio.py's (single lane),
 tests/test_torch_batch.py's (B = 2) and tests/test_torch_map_builder.py's.
 """
 
-import collections
 import functools
 
 import jax
@@ -37,7 +36,6 @@ import numpy as np
 import pytest
 import torch
 from torch.utils._pytree import tree_flatten, tree_map
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import preset_streams
 import test_torch_batch as tbatch
@@ -58,65 +56,17 @@ from dliom_tpu_torch.frontend.lio import (
     run_lio_chunk,
 )
 from dliom_tpu_torch.frontend import local_trajectory_builder as ltb
-from dliom_tpu_torch.imu import affine_chain as ac
 from dliom_tpu_torch.imu import preintegration as pre
 from dliom_tpu_torch.interop import lio_scan_input_from_numpy, lio_state_from_numpy, to_numpy
 from dliom_tpu_torch.mapping.grid import GridSpec, set_cells
-from dliom_tpu_torch.ops import grouped_apply as ga
 from dliom_tpu_torch.ops.scan_matcher import match
 from dliom_tpu_torch.parallel import batch as TBatch
 from dliom_tpu_torch.transform.rigid import Rigid3
 import torch_threads  # noqa: F401  (one torch thread per test process)
+from torch_capture_audit import audited as _audited
 
 CPU = torch.device("cpu")
 CHUNK = 3
-# ops a CUDA graph capture refuses: host reads, host data, data-dependent sizes
-UNCAPTURABLE = {"aten._local_scalar_dense.default", "aten.lift_fresh.default", "aten.nonzero.default",
-                "aten.repeat_interleave.Tensor", "aten.masked_select.default", "aten._unique2.default",
-                "aten.unique_dim.default", "aten.unique_consecutive.default"}
-PLAIN_KERNELS = ((ga, "apply_grouped_rows_plain"), (ga, "apply_grouped_updates_plain"),
-                 (ac, "affine_chain_plain"))
-
-
-class _Uncapturable(TorchDispatchMode):
-    """Counts the uncapturable ops issued outside the kernels' plain versions."""
-
-    def __init__(self):
-        super().__init__()
-        self.found = collections.Counter()
-        self.ops = 0
-        self.inside_plain = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops += 1
-        name = str(func)
-        bad = name in UNCAPTURABLE or (
-            name.startswith(("aten.index.Tensor", "aten.index_put"))
-            and any(i is not None and i.dtype == torch.bool for i in args[1]))
-        if bad and not self.inside_plain:
-            self.found[name] += 1
-        return func(*args, **(kwargs or {}))
-
-
-def _audited(monkeypatch, fn):
-    """fn() under `_Uncapturable`, the kernels' plain versions excluded."""
-    mode = _Uncapturable()
-    for mod, name in PLAIN_KERNELS:
-        plain = getattr(mod, name)
-
-        def excluded(*a, _plain=plain, **k):
-            mode.inside_plain += 1
-            try:
-                return _plain(*a, **k)
-            finally:
-                mode.inside_plain -= 1
-
-        monkeypatch.setattr(mod, name, excluded)
-    with mode:
-        fn()
-    return mode
-
-
 def _lio_cfg():
     return t_load_config("basic", tlio.OVERRIDES).trajectory_builder
 

@@ -594,16 +594,10 @@ def test_batched_step_launches(cuda_device):
     torch.testing.assert_close(poses[4][0], poses[1][0], atol=2e-4, rtol=0)
 
 
-def test_compiled_step_replays_the_eager_step(cuda_device):
-    """`make_jit_lio_step` on the card at a small brick config: the first
-    call warms up and captures, each later call replays; every replay
-    equals the eager `lio_step` from the same pre-step state (integer state
-    and flags bit for bit, pose within 2e-3), and the launch counters count
-    the replays' K1 and K2 launches as the eager step's."""
-    from torch.utils._pytree import tree_map
-
-    from dliom_tpu_torch.common import graph as cg
-    from dliom_tpu_torch.frontend.lio import LioScanInput, lio_step, make_jit_lio_step, make_lio_state
+def _small_step_case(cuda_device):
+    """A small brick config and its scans on the card: (cfg, scan(i), a
+    fresh state)."""
+    from dliom_tpu_torch.frontend.lio import LioScanInput, make_lio_state
     from dliom_tpu_torch.imu.preintegration import NavState
     from dliom_tpu_torch.io.synthetic import SyntheticWorld, corkscrew_trajectory
     from dliom_tpu_torch.sensor.types import pad_point_cloud
@@ -633,26 +627,263 @@ def test_compiled_step_replays_the_eager_step(cuda_device):
                 imu_gyr=rng.normal(0, 0.002, (16, 3)).astype(np.float32),
                 imu_mask=np.arange(16) < 14).items()})
 
-    clone = lambda tree: tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)  # noqa: E731
     zero = torch.zeros(3, device=cuda_device)
-    state = make_lio_state(cfg, NavState.identity(cuda_device), zero, zero)
+    return cfg, scan, make_lio_state(cfg, NavState.identity(cuda_device), zero, zero)
+
+
+def _clone(tree):
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _held_step(cfg, pre, inp, state, res):
+    """A replay's state and result against the eager `lio_step` from the
+    same pre-step state: integer state and flags bit for bit, pose within
+    2e-3."""
+    from dliom_tpu_torch.common import graph as cg
+    from dliom_tpu_torch.frontend.lio import lio_step
+
+    with cg.cusolver():
+        eager_state, eager = lio_step(_clone(pre), inp, cfg)
+    for x, y in zip(torch.utils._pytree.tree_leaves(state), torch.utils._pytree.tree_leaves(eager_state)):
+        assert x.dtype.is_floating_point or torch.equal(x, y)
+    for f in ("inserted", "finished_submap", "matcher_iterations", "num_hits", "insertion_submap_ids"):
+        assert torch.equal(getattr(res.scan, f), getattr(eager.scan, f)), f
+    torch.testing.assert_close(res.scan.local_pose.translation, eager.scan.local_pose.translation,
+                               atol=2e-3, rtol=0)
+
+
+def test_compiled_step_replays_the_eager_step(cuda_device):
+    """`make_jit_lio_step` on the card at a small brick config: the first
+    call warms up and captures, each later call replays; every replay
+    equals the eager `lio_step` from the same pre-step state (integer state
+    and flags bit for bit, pose within 2e-3), and the launch counters count
+    the replays' K1 and K2 launches as the eager step's."""
+    from dliom_tpu_torch.common import graph as cg
+    from dliom_tpu_torch.frontend.lio import make_jit_lio_step
+
+    cfg, scan, state = _small_step_case(cuda_device)
     step = make_jit_lio_step(cfg)
     for i in range(6):
         inp = scan(i)
-        pre = clone(state)
-        with cg.cusolver():
-            eager_state, eager = lio_step(clone(pre), inp, cfg)
+        pre = _clone(state)
         before = cg.launch_counts()
         state, res = step(state, inp)
         torch.cuda.synchronize()
         replayed = {k: v - before[k] for k, v in cg.launch_counts().items()}
         assert replayed == {"dliom_tpu_torch.ops.grouped_apply.LAUNCHES": 2, "dliom_tpu_torch.ops.grouped_apply.DENSE_LAUNCHES": 0,
                             "dliom_tpu_torch.imu.affine_chain.LAUNCHES": 1}, (i, replayed)
-        for x, y in zip(torch.utils._pytree.tree_leaves(state), torch.utils._pytree.tree_leaves(eager_state)):
-            assert x.dtype.is_floating_point or torch.equal(x, y), i
-        for f in ("inserted", "finished_submap", "matcher_iterations", "num_hits", "insertion_submap_ids"):
-            assert torch.equal(getattr(res.scan, f), getattr(eager.scan, f)), (i, f)
-        torch.testing.assert_close(res.scan.local_pose.translation, eager.scan.local_pose.translation,
-                                   atol=2e-3, rtol=0)
+        _held_step(cfg, pre, inp, state, res)
     assert step.counts() == {"steps": 6, "warmups": 1, "captures": 1, "replays": 5}
     assert int(state.failures) == 0
+
+
+def _spa_case(device):
+    """A small SPA problem on `device`: 4 submaps, 16 nodes, 2 constraints
+    per node, poses perturbed."""
+    from dliom_tpu_torch.backend import optimization as opt
+
+    rng = np.random.default_rng(3)
+    d = opt.make_pose_graph_data(8, 32, 64, device=device)
+    c = torch.arange(32, device=device)
+    sub = torch.from_numpy(np.arange(4)).to(device)
+    return d._replace(
+        submap_t=d.submap_t.index_copy(0, sub, torch.from_numpy(
+            (rng.normal(0, 0.1, (4, 3)) + np.arange(4)[:, None] * [2.0, 0, 0]).astype(np.float32)).to(device)),
+        submap_valid=d.submap_valid.index_fill(0, sub, True),
+        node_t=torch.from_numpy(rng.normal(0, 0.5, (32, 3)).astype(np.float32)).to(device)
+        + (torch.arange(32, device=device) // 8)[:, None] * torch.tensor([2.0, 0, 0], device=device),
+        node_valid=torch.arange(32, device=device) < 16,
+        c_submap=torch.cat([c // 8, (c // 8 + 1) % 4]).to(torch.int32),
+        c_node=torch.cat([c, c]).to(torch.int32),
+        c_t=torch.from_numpy(rng.normal(0, 0.5, (64, 3)).astype(np.float32)).to(device),
+        c_trans_weight=torch.full((64,), 10.0, device=device),
+        c_rot_weight=torch.full((64,), 10.0, device=device),
+        c_valid=torch.cat([c, c]) < 16)
+
+
+def test_worker_capture_beside_frontend_replays(cuda_device):
+    """common/graph.py off the frontend thread: a worker thread, on its own
+    stream, warms up, captures and replays one SPA GN step (reverse-mode
+    autograd inside the capture) into a pool of its own, while the main
+    thread replays the compiled LIO step. The K1/K2 launch counters end at
+    the main thread's launches alone (the worker's capture recorded
+    none of the replays made meanwhile), the two graphs' pools differ, and
+    both graphs' results equal their eager runs."""
+    import threading
+
+    from dliom_tpu_torch.backend import optimization as opt
+    from dliom_tpu_torch.common import graph as cg
+    from dliom_tpu_torch.common.graph import StepGraph
+    from dliom_tpu_torch.frontend.lio import make_jit_lio_step
+
+    cfg, scan, state = _small_step_case(cuda_device)
+    step = make_jit_lio_step(cfg)
+    inputs = [scan(i) for i in range(8)]
+    for i in range(2):  # the warm-up and the capture, then one replay
+        state, _ = step(state, inputs[i])
+    torch.cuda.synchronize()
+
+    problem = _spa_case(cuda_device)
+    torch.cuda.synchronize()  # the worker's stream reads it
+    fields = ("submap_q", "submap_t", "node_q", "node_t", "lm_positions", "lm_q")
+    kw = dict(cg_iterations=16, fix_first_submap=True, blocks=(False, False, False))
+
+    def body(poses, d):
+        out = opt.gn_step(d._replace(**dict(zip(fields, poses))), **kw)
+        return tuple(getattr(out, f) for f in fields), None
+
+    worker_graph = StepGraph(body, pool=cg.SharedPool(), name="spa")
+    replays = [0]
+    worker = {"done": threading.Event()}
+
+    def run_worker():
+        try:
+            stream = torch.cuda.Stream(cuda_device)
+            with torch.cuda.device(cuda_device), torch.cuda.stream(stream):
+                worker_graph.bind(tuple(getattr(problem, f) for f in fields), problem)
+                worker_graph.load_input(problem)
+                held = []
+                for k in range(4):
+                    pre = tuple(x.clone() for x in worker_graph.state)
+                    before = replays[0]
+                    worker_graph.step()  # the warm-up and the capture, then replays
+                    if k == 0:
+                        worker["overlap"] = replays[0] - before
+                    with cg.cusolver():
+                        want = opt.gn_step(problem._replace(**dict(zip(fields, pre))), **kw)
+                    held.append(all(torch.equal(x, getattr(want, f)) for f, x in zip(fields, worker_graph.state)))
+                stream.synchronize()
+                worker["held"] = held
+        except BaseException as e:  # reported on the main thread
+            worker["error"] = e
+        finally:
+            worker["done"].set()
+
+    start = cg.launch_counts()
+    t = threading.Thread(target=run_worker)
+    t.start()
+    kept, i = [], 2
+    while not worker["done"].is_set() or i < 6:
+        inp = inputs[i % len(inputs)]
+        pre = _clone(state)
+        state, res = step(state, inp)
+        replays[0] += 1
+        if len(kept) < 3:
+            kept.append((pre, inp, _clone((state, res))))
+        i += 1
+    t.join()
+    torch.cuda.synchronize()
+    assert "error" not in worker, worker.get("error")
+    assert worker["overlap"] > 0, "the main thread replayed during the worker's warm-up and capture"
+    assert worker_graph.counts() == {"steps": 4, "warmups": 1, "captures": 1, "replays": 3}
+    assert not any(worker_graph.launches.values()), worker_graph.launches
+    launched = {k: v - start[k] for k, v in cg.launch_counts().items()}
+    assert launched == {k: replays[0] * v for k, v in step.launches.items()}, (launched, replays[0])
+    assert worker_graph.graph.pool() != step.graph.pool()
+    assert worker["held"] == [True] * 4, worker["held"]
+    for pre, inp, (st, res) in kept:
+        _held_step(cfg, pre, inp, st, res)
+
+
+def test_zero_launch_replays_beside_frontend_replays(cuda_device):
+    """Many replays of a graph that launches no kernel of the port, on a
+    worker thread and its own stream, while the main thread replays the
+    compiled LIO step: the K1/K2 launch counters end exactly at the main
+    thread's launches (a worker's replay adds nothing, and none of the
+    main thread's additions is lost)."""
+    import threading
+
+    from dliom_tpu_torch.common import graph as cg
+    from dliom_tpu_torch.common.graph import StepGraph
+    from dliom_tpu_torch.frontend.lio import make_jit_lio_step
+
+    cfg, scan, state = _small_step_case(cuda_device)
+    step = make_jit_lio_step(cfg)
+    inputs = [scan(i) for i in range(8)]
+    for i in range(2):  # the warm-up and the capture, then one replay
+        state, _ = step(state, inputs[i])
+    torch.cuda.synchronize()
+
+    worker_graph = StepGraph(lambda s, x: (s + x, None), pool=cg.SharedPool(), name="add")
+    ready, done, errors = threading.Event(), threading.Event(), []
+
+    def run_worker():
+        try:
+            stream = torch.cuda.Stream(cuda_device)
+            with torch.cuda.device(cuda_device), torch.cuda.stream(stream):
+                one = torch.ones(16, device=cuda_device)
+                worker_graph(torch.zeros(16, device=cuda_device), one)  # the warm-up and the capture
+                ready.set()
+                for _ in range(3000):
+                    worker_graph.step()
+                stream.synchronize()
+        except BaseException as e:  # reported on the main thread
+            errors.append(e)
+        finally:
+            ready.set()
+            done.set()
+
+    t = threading.Thread(target=run_worker)
+    t.start()
+    ready.wait()
+    start = cg.launch_counts()
+    replays = 0
+    while not done.is_set() or replays < 8:
+        state, _ = step(state, inputs[replays % len(inputs)])
+        replays += 1
+    t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert worker_graph.counts() == {"steps": 3001, "warmups": 1, "captures": 1, "replays": 3000}
+    assert torch.equal(worker_graph.state, torch.full((16,), 3001.0, device=cuda_device))
+    launched = {k: v - start[k] for k, v in cg.launch_counts().items()}
+    assert launched == {k: replays * v for k, v in step.launches.items()}, (launched, replays)
+
+
+def test_capture_beside_a_dead_graph_in_garbage(cuda_device):
+    """common/graph.py::capture pauses Python's garbage collector: a dead
+    graph that becomes cyclic garbage during a capture, with enough
+    allocations after it for a collection, is not destroyed inside the
+    capture (CUDA refuses that while the thread's stream captures, and the
+    capture would be lost). The capture holds, replays, and the dead graph
+    goes with the next collection."""
+    import gc
+    import weakref
+
+    from dliom_tpu_torch.common import graph as cg
+    from dliom_tpu_torch.common.graph import StepGraph
+
+    class Cycle:
+        def __init__(self, obj):
+            self.obj, self.me = obj, self
+
+    one = torch.ones(16, device=cuda_device)
+    dead = StepGraph(lambda s, x: (s + x, None), pool="own", name="dead")
+    for _ in range(3):  # the warm-up, the capture and a replay
+        dead(torch.zeros(16, device=cuda_device), one)
+    torch.cuda.synchronize()
+    gone = weakref.ref(dead.graph)
+    box = [dead]
+    del dead
+    x = torch.arange(16, dtype=torch.float32, device=cuda_device)
+
+    def fn():
+        Cycle(box.pop())  # the dead graph's last reference, in a garbage cycle
+        junk = [[] for _ in range(20 * gc.get_threshold()[0])]  # allocations enough for a collection
+        del junk
+        out.append(x * 2.0 + 1.0)
+
+    out = []
+    enabled = gc.isenabled()
+    graph = torch.cuda.CUDAGraph()
+    cg.capture(graph, (), cuda_device, fn)
+    assert gc.isenabled() == enabled
+    assert gone() is not None, "the dead graph was collected inside the capture"
+    x.copy_(torch.full((16,), 3.0, device=cuda_device))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], torch.full((16,), 7.0, device=cuda_device))
+    gc.collect()
+    assert gone() is None
