@@ -42,7 +42,11 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      card's idle share over replays; the eager `lio_step` over EXIT_SCANS
      scans with its LM's fixed trip and with the early exit
      (`match(host_exit=True)`), on the card and on the CPU, timed, the
-     poses equal bit for bit.
+     poses equal bit for bit; and over the same scans the LM traced
+     iteration by iteration on the card and on the CPU from the same match
+     arguments (`lm_departure`, tools/torch_lm_trace.py): no quantity
+     beyond the tool's f32 bounds, the same iterations unless both ratios
+     lie at the threshold.
      Every step held against the eager step, here and in phases 8-11, has
      its integer state bit for bit, its pose within POSE_ATOL and its
      velocity and float state within HELD_ATOL;
@@ -84,7 +88,9 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      state and input, within 2e-3 of the card's local pose. The course is
      tools/torch_e2e_loop_ate.py's; its `evaluate` (ATE, endpoint error,
      INTER, nodes, submaps), the truth paired with the nodes by node time,
-     is printed after the warm-up and after `finish_trajectory()`. The
+     is printed after the warm-up and after `finish_trajectory()`, then
+     each INTER constraint's score and its error against the true relative
+     pose (tools/torch_e2e_accuracy.py's `inter_errors`). The
      backend's compiled programs (backend/pose_graph.py: decompress and
      pyramid, the searches with refinement, project, propose, the SPA's
      GN step, each a CUDA graph captured on its pool thread while the
@@ -1030,11 +1036,46 @@ def check_compiled(ga, ac, dev, eager_rate, eager_launches, spawn):
               f"{cfg.ceres_scan_matcher.max_num_iterations} {c['fixed_trip_ms']:.1f} ms/scan; poses equal: "
               f"{c['equal']}", flush=True)
         check(c["equal"], f"compiled: on the {d.type} the fixed-trip LM's poses differ from the early exit's")
+    lm = lm_departure(cfg, after_warmup, inputs[WARMUP:WARMUP + EXIT_SCANS], dev)
     return launches, {"first_step_s": first_s, "capture_s": step.capture_seconds, "graph_vs_eager": compare,
-                      "lm_exit_cost": {d.type: c for d, c in exit_cost.items()},
+                      "lm_exit_cost": {d.type: c for d, c in exit_cost.items()}, "lm_departure": lm,
                       "eager_scans_per_s": eager_rate, "step_scans_per_s": step_rate, "step_idle_share": step_idle,
                       "chunk": CHUNK, "chunk_scans_per_s": chunk_rate, "chunk_first_s": chunk_first_s,
                       "chunk_capture_s": chunk.capture_seconds, "chunk_idle_share": chunk_idle}
+
+
+def lm_departure(cfg, state, inputs, dev):
+    """Phase 14, beside `lm_exit_cost`: the eager `lio_step` on the card over
+    the same scans from the same state; at each scan's match,
+    tools/torch_lm_trace.py traces the LM on the card (under cuSOLVER, as
+    the graph) and on the CPU from copies of the same arguments, each trace
+    equal to its device's own `match`. Prints the first quantity that
+    departs beyond the tool's BOUNDS, the largest difference of each, both
+    devices' iterations and the convergence ratio closest to the
+    tolerance. Fails if a quantity departs, or if the iterations differ
+    anywhere but at the threshold (both ratios within BOUNDS["ratio"] of
+    the tolerance, where rounding alone can flip the exit)."""
+    import torch_lm_trace as tl
+
+    tol = cfg.ceres_scan_matcher.function_tolerance
+    t0 = time.perf_counter()
+    traces = without_launches(lambda: tl.chain_traces(
+        cfg, state, inputs, {"cpu": (torch.device("cpu"), None), "cuda": (dev, "cusolver")}))
+    c = tl.compare(traces, "cpu", "cuda", tol)
+    worst = {k: max(v) for k, v in c["worst_by_iteration"].items()}
+    closest = min(abs(r["ratio"] - tol) for scan in traces for t in scan.values() for r in t["rows"])
+    print(f"compiled: the LM on the card against the CPU from the same match arguments over {len(traces)} "
+          f"scans (tools/torch_lm_trace.py): first quantity beyond its bound {c['first_departure']}; largest "
+          f"differences " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()) + f"; iterations {c['iterations']}; "
+          f"the convergence ratio closest to the tolerance {tol} lies {closest:.2e} from it; flips "
+          f"{c['iteration_flips']}; {time.perf_counter() - t0:.1f} s", flush=True)
+    check(all(t["equal_to_match"] and t["replayed"] for scan in traces for t in scan.values()),
+          "compiled: an LM trace ends where its device's match does")
+    check(c["first_departure"] is None, f"compiled: the card's LM departs from the CPU's: {c['first_departure']}")
+    check(all(f["at_threshold"] for f in c["iteration_flips"]),
+          f"compiled: the card's LM exits apart from the CPU's away from the threshold: {c['iteration_flips']}")
+    return {"first_departure": c["first_departure"], "worst": worst, "iterations": c["iterations"],
+            "closest_ratio_to_tolerance": closest, "flips": c["iteration_flips"]}
 
 
 def lm_exit_cost(cfg, state, inputs, device):
@@ -1662,6 +1703,11 @@ def check_mapping(ga, ac, dev):
     accuracy["finished"] = e2e_accuracy(pg, course)
     print(f"mapping: e2e evaluator at bench_e2e's config after finish_trajectory() ({len(course)} scans, the "
           f"final optimization run): {fmt_accuracy(accuracy['finished'])}", flush=True)
+    from torch_e2e_accuracy import inter_errors, truth
+
+    accuracy["inter"] = inter_errors(pg, truth(course))
+    print("mapping: INTER (submap, node, score, error against the true relative pose m, rad): "
+          + "; ".join(f"{s} {n} {sc:.3f} {dt:.3f} {dr:.4f}" for s, n, sc, dt, dr in accuracy["inter"]), flush=True)
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
     rec["restore"]()

@@ -59,6 +59,17 @@ class TimedPointCloud(NamedTuple):
     times: np.ndarray
     mask: np.ndarray
 
+    @property
+    def capacity(self) -> int:
+        return self.points.shape[-2]
+
+    def num_valid(self):
+        """int32 count of valid points per cloud, numpy or a tensor as the
+        mask is."""
+        if isinstance(self.mask, torch.Tensor):
+            return torch.sum(self.mask, dim=-1, dtype=torch.int32)
+        return np.sum(self.mask, axis=-1, dtype=np.int32)
+
 
 def pad_point_cloud(points: np.ndarray, times: np.ndarray | None, capacity: int) -> TimedPointCloud:
     """Pad/truncate a variable-size cloud to `capacity`; truncation keeps a

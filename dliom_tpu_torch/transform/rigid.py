@@ -230,6 +230,16 @@ class Rigid3(NamedTuple):
         )
 
     @staticmethod
+    def from_parts(rotation, translation) -> "Rigid3":
+        return Rigid3(torch.as_tensor(rotation, dtype=torch.float32),
+                      torch.as_tensor(translation, dtype=torch.float32))
+
+    @staticmethod
+    def translation_only(translation) -> "Rigid3":
+        t = torch.as_tensor(translation, dtype=torch.float32)
+        return Rigid3(quat_identity(t.shape[:-1], t.dtype, t.device), t)
+
+    @staticmethod
     def rotation_only(rotation: torch.Tensor) -> "Rigid3":
         return Rigid3(rotation, rotation.new_zeros(rotation.shape[:-1] + (3,)))
 
@@ -240,6 +250,9 @@ class Rigid3(NamedTuple):
             translation=quat_rotate(self.rotation, other.translation) + self.translation,
         )
 
+    def __matmul__(self, other: "Rigid3") -> "Rigid3":
+        return self.compose(other)
+
     def inverse(self) -> "Rigid3":
         rot_inv = quat_conjugate(self.rotation)
         return Rigid3(rotation=rot_inv, translation=-quat_rotate(rot_inv, self.translation))
@@ -247,6 +260,14 @@ class Rigid3(NamedTuple):
     def apply(self, points: torch.Tensor) -> torch.Tensor:
         """Transform point(s) (..., 3); the rotation broadcasts over points."""
         return quat_rotate(self.rotation, points) + self.translation
+
+    def interpolate(self, other: "Rigid3", t) -> "Rigid3":
+        """Lerp the translation, slerp the rotation (transform.h
+        Interpolate); `t` is a scalar or one value per pose."""
+        t = torch.as_tensor(t, dtype=self.translation.dtype, device=self.translation.device)
+        w = t[..., None] if t.dim() == self.translation.dim() - 1 else t
+        return Rigid3(quat_slerp(self.rotation, other.rotation, t),
+                      self.translation + w * (other.translation - self.translation))
 
 
 # ---------------------------------------------------------------------------

@@ -181,14 +181,14 @@ def test_main_runs_the_port_on_the_cpu(monkeypatch, capsys):
     assert acc["before"]["ate_rmse_m"] < lines[0]["ate_rmse_m"]
 
 
-def test_accuracy_at_bench_e2e_config(monkeypatch):
+def test_accuracy_at_bench_e2e_config(monkeypatch, tmp_path):
     """tools/torch_e2e_accuracy.py --config bench_e2e on a shortened
-    phase 8 course: pool threads, pipeline depth 1, truth by node time."""
-    import chip_smoke
-
-    for name, value in (("E2E_WARM", 8), ("E2E_TIMED", 1), ("E2E_PROFILED", 1)):
-        monkeypatch.setattr(chip_smoke, name, value)
-    acc = load(ACCURACY_TOOL, "torch_e2e_accuracy").main(["--config", "bench_e2e", "--device", "cpu"])
+    course (27 scans: 16 static, 11 moving): pool threads, pipeline depth
+    1, truth by node time, the pairs file written (no INTER yet)."""
+    tool = load(ACCURACY_TOOL, "torch_e2e_accuracy")
+    monkeypatch.setattr(tool, "BENCH_E2E_SCANS", 27)
+    acc = tool.main(["--config", "bench_e2e", "--device", "cpu", "--pairs", str(tmp_path / "pairs.npz")])
+    assert np.load(tmp_path / "pairs.npz").files == []
     assert acc["static_nodes"] == 2 and acc["after"]["num_nodes"] == acc["before"]["num_nodes"] >= 3
     assert np.isfinite(acc["before"]["ate_rmse_m"]) and acc["inter"] == []
 

@@ -101,3 +101,55 @@ def test_np_mirrors():
     v = np.asarray([0.3, -0.2, 0.5])
     np.testing.assert_allclose(np.asarray(J.quat_from_axis_angle(jnp.asarray(v, jnp.float32))),
                                T.np_quat_from_axis_angle(v), atol=1e-6)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("name", ["from_parts", "translation_only", "matmul", "interpolate_0", "interpolate_0.3",
+                                  "interpolate_1", "capacity", "num_valid"])
+def test_rigid3_and_cloud_names(name, batched):
+    """Rigid3.from_parts, translation_only, @ and interpolate (t in {0,
+    0.3, 1}) and TimedPointCloud.capacity and num_valid against JAX."""
+    from dliom_tpu.sensor.types import TimedPointCloud as JCloud
+    from dliom_tpu_torch.sensor.types import TimedPointCloud as TCloud
+
+    rng = np.random.default_rng(6)
+    n = 8 if batched else 1
+    qa, qb, ta, tb = _quats(rng, n), _quats(rng, n), _vecs(rng, n, 3.0), _vecs(rng, n, 3.0)
+    qb[:2] = qa[:2]  # nearly parallel rotations take slerp's nlerp branch
+    if not batched:
+        qa, qb, ta, tb = qa[0], qb[0], ta[0], tb[0]
+    ja, jb = J.Rigid3.from_parts(qa, ta), J.Rigid3.from_parts(qb, tb)
+    pa, pb = T.Rigid3.from_parts(qa, ta), T.Rigid3.from_parts(qb, tb)
+    if name == "from_parts":
+        jr, tr = ja, pa
+        assert tr.rotation.dtype == tr.translation.dtype == torch.float32
+    elif name == "translation_only":
+        jr, tr = J.Rigid3.translation_only(ta), T.Rigid3.translation_only(ta)
+    elif name == "matmul":
+        jr, tr = ja @ jb, pa @ pb
+        _cmp(ja.compose(jb).translation, tr.translation, atol=5e-6)
+    elif name.startswith("interpolate"):
+        t = float(name.split("_")[1])
+        jr, tr = ja.interpolate(jb, t), pa.interpolate(pb, t)
+        if batched:  # one t per pose too
+            ts = np.full(n, t, np.float32)
+            jt, tt = ja.interpolate(jb, jnp.asarray(ts)), pa.interpolate(pb, torch.from_numpy(ts))
+            _cmp(jt.rotation, tt.rotation)
+            _cmp(jt.translation, tt.translation, atol=5e-6)
+    else:
+        shape = (n, 40) if batched else (40,)
+        pts = rng.normal(size=shape + (3,)).astype(np.float32)
+        times = -rng.uniform(0, 0.1, shape).astype(np.float32)
+        mask = rng.random(shape) < 0.6
+        jc = JCloud(jnp.asarray(pts), jnp.asarray(times), jnp.asarray(mask))
+        for tc in (TCloud(pts, times, mask), TCloud(*(torch.from_numpy(x) for x in (pts, times, mask)))):
+            if name == "capacity":
+                assert tc.capacity == jc.capacity == 40
+            else:
+                got = tc.num_valid()
+                assert got.dtype in (np.int32, torch.int32)
+                np.testing.assert_array_equal(np.asarray(got), np.asarray(jc.num_valid()))
+        return
+    assert tr.rotation.shape == jr.rotation.shape and tr.translation.shape == jr.translation.shape
+    _cmp(jr.rotation, tr.rotation)
+    _cmp(jr.translation, tr.translation, atol=5e-6)
