@@ -231,6 +231,32 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      before the final optimization under 0.5 m, `evaluate_constraints`'
      keys, K2 once per stepped scan and K1 never (the course's grids take
      the scatter insert), no drops, no reset, finite poses.
+ 15. bench_torch.py (bench.py's port), after phase 13: (a) its `main`
+     with BENCH_E2E=0 (the compiled chunk of CHUNK 10 over bench.py's ten
+     scans, WARMUP 2 and MEASURE 8 chunks): one JSON line with bench.py's
+     frontend keys, zero drops, K1 twice and K2 once per scan; (b) its
+     flagship config (`bench_torch.e2e_config(flagship=True)`: the 0.1 m
+     / 60 m high and 0.45 m low brick grids on the grouped brick K1 at 512
+     / 192 groups, backend crops 448^3 / 288^3, 2 pool threads,
+     pipeline_depth 1) on phase 8's course, cut as phase 8 cuts it (circle
+     E2E_RADIUS, a warm-up of E2E_WARM scans and up to FLAGSHIP_WARM_MORE
+     more until an INTER is found, a timed stretch until it holds a search,
+     a periodic solve and a submap finish, E2E_PROFILED + E2E_PROFILED
+     profiled, `finish_trajectory()`; printed as `reduced`). Checks:
+     initialized, finite poses, no failure reset, >= 1 INTER, the final
+     optimization ran, K1 (brick) twice and K2 once per stepped scan, the
+     compiled step's counts, the first HELD_REPLAYS replays of every
+     backend graph (decompress and pyramid at 448^3 included) held against
+     its eager body (`hold_backend_graphs`), a window of at most
+     FLAGSHIP_WINDOW_MAX steps across a submap finish held against the
+     eager step (`hold_steps`) and every grouped brick K1 call of those
+     eager steps against plain on a CPU copy, bit for bit. Printed: each
+     backend program's capture s, replay device ms and kernels, the grid
+     copy-in ms, the programs' memory, the grid cache's, the peak device
+     memory, each finished submap's captured cells against the compress
+     capacities (1 << 18 high, 1 << 16 low), the drop gauges (bench.py's
+     capacities, not gated: bench.py gates only its frontend's), scans/s,
+     p50 / p99, phase_seconds and the idle share.
 
 Phase 8 compares step by step, not the free-running CPU trajectory: on
 this course an input change of 1e-6 moves the CPU run's fifth local pose
@@ -1616,6 +1642,105 @@ def record_steps(pose_steps, bank_from, bank_max):
     return rec
 
 
+def warm_until_inter(builder, course, n_warm, n_max):
+    """Drive the first `n_warm` scans of `course`, then, while no INTER
+    constraint is found (the revisit's searches run when a submap
+    finishes), 8 more at a time up to `n_max`; the pool drained after
+    each. Returns the scans driven."""
+    pg = builder.pose_graph
+    drive(builder, course[:n_warm])
+    builder.flush()
+    pg.wait_for_all_computations()
+    while pg.num_inter_constraints() == 0 and n_warm < n_max:
+        drive(builder, course[n_warm:n_warm + 8])
+        n_warm += 8
+        builder.flush()
+        pg.wait_for_all_computations()
+    return n_warm
+
+
+def timed_stretch(tag, builder, course, start, more=lambda: False):
+    """The latency, search and phase surfaces cleared, then E2E_TIMED scans
+    of `course` from `start`, and 8 more at a time while no loop search and
+    periodic solve has ended inside or `more()`, up to E2E_TIMED_MAX; the
+    pool drained, then the card synchronized (no capture is underway).
+    Checks that a search and a solve fell inside; returns (scans, seconds,
+    solves)."""
+    pg = builder.pose_graph
+    builder.local_slam_latency_seconds.clear()
+    pg.constraint_search_seconds.clear()
+    pg.phase_seconds.clear()
+    spa_steps = builder.graph_counts().get("spa", {}).get("steps", 0)
+    t0 = time.perf_counter()
+    timed = 0
+    while timed < E2E_TIMED_MAX and (timed < E2E_TIMED or not pg.constraint_search_seconds
+                                     or "spa" not in pg.phase_seconds or more()):
+        n = E2E_TIMED if timed == 0 else 8
+        drive(builder, course[start + timed:start + timed + n])
+        timed += n
+    builder.flush()
+    pg.wait_for_all_computations()
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    searches = len(pg.constraint_search_seconds)
+    solves = ((builder.graph_counts().get("spa", {}).get("steps", 0) - spa_steps)
+              // builder.config.pose_graph.optimization_problem.max_num_iterations)
+    print(f"{tag}: timed {timed} scans in {timed_s:.3f} s, holding {searches} loop searches and {solves} "
+          f"periodic SPA solves", flush=True)
+    check(searches >= 1 and solves >= 1,
+          f"{tag}: the timed stretch of {timed} scans held a loop search ({searches}) and a periodic "
+          f"solve ({solves})")
+    return timed, timed_s, solves
+
+
+def profile_course(builder, scans):
+    """The card's activity (busy ms, the costliest kernels) and the host ms
+    over the second half of `scans`, after the first as a warm-up cycle;
+    each cycle drives its scans and drains the pool. Only the card is
+    recorded: these figures read nothing else, and a profile with host ops
+    took ~70 s to read."""
+    pg = builder.pose_graph
+
+    def cycle(part):
+        def run():
+            drive(builder, part)
+            builder.flush()
+            pg.wait_for_all_computations()
+        return run
+
+    half = len(scans) // 2
+    prof, wall = warm_profile([cycle(scans[:half]), cycle(scans[half:])], host=False)
+    busy, top = card_busy_ms(prof.events())
+    return busy, top, wall
+
+
+def check_backend_programs(tag, builder):
+    """The pose graph's compiled programs' counts, printed; a with-initial
+    search and the SPA each captured and replayed on the pool threads."""
+    counts = builder.graph_counts()
+    print(f"{tag}: backend programs (steps = warm-ups + replays; captures): " + "; ".join(
+        f"{k} {v['steps']} = {v['warmups']} + {v['replays']}; {v['captures']}"
+        for k, v in counts.items() if k not in ("step", "ndt")), flush=True)
+    for name in ("search_initial", "spa"):
+        c = counts.get(name, {})
+        check(c.get("captures", 0) >= 1 and c.get("replays", 0) >= 1,
+              f"{tag}: the {name} program was captured and replayed on the pool threads: {c}")
+    return counts
+
+
+def check_trajectory(tag, builder, results):
+    """Initialized; every local pose and optimized node pose finite; no
+    FailureDetection reset."""
+    check(builder.initialized, f"{tag}: MapBuilder initialized")
+    for k, r in enumerate(results):
+        check(np.all(np.isfinite(r["local_pose"].translation))
+              and np.all(np.isfinite(r["local_pose"].rotation)), f"{tag}: local pose {k} finite")
+        check(not r["failed"], f"{tag}: scan {k}: FailureDetection reset")
+    for k, (_, pose) in enumerate(builder.optimized_node_poses()):
+        check(np.all(np.isfinite(pose.translation)) and np.all(np.isfinite(pose.rotation)),
+              f"{tag}: node {k} pose finite")
+
+
 def check_mapping(ga, ac, dev):
     """Phase 8: MapBuilder on the bench_e2e course, see the module docstring."""
     from dliom_tpu_torch.common.config import load_config
@@ -1633,16 +1758,7 @@ def check_mapping(ga, ac, dev):
     ga.DENSE_LAUNCHES = 0
     ac.LAUNCHES = 0
     t_all = time.perf_counter()
-    drive(builder, course[:n_warm])
-    builder.flush()
-    pg.wait_for_all_computations()
-    # the revisit's searches run when a submap finishes: on a host where
-    # none has closed the loop yet, go on a little
-    while pg.num_inter_constraints() == 0 and n_warm < E2E_STATIC + E2E_WARM + E2E_WARM_MORE:
-        drive(builder, course[n_warm:n_warm + 8])
-        n_warm += 8
-        builder.flush()
-        pg.wait_for_all_computations()
+    n_warm = warm_until_inter(builder, course, n_warm, E2E_STATIC + E2E_WARM + E2E_WARM_MORE)
     warm_s = time.perf_counter() - t_all
     print(f"mapping: warm-up {n_warm} scans in {warm_s:.1f} s; nodes {len(pg.nodes)} submaps "
           f"{len(pg.submaps)} INTER {pg.num_inter_constraints()}", flush=True)
@@ -1654,46 +1770,12 @@ def check_mapping(ga, ac, dev):
     print(f"mapping: over the warm-up (the backend's captures included): {len(warm_search)} searches, "
           f"{sum(warm_search):.3f} s in all; phase_seconds "
           + ", ".join(f"{k} {v:.3f}" for k, v in warm_phases.items()), flush=True)
-    builder.local_slam_latency_seconds.clear()
-    pg.constraint_search_seconds.clear()
-    pg.phase_seconds.clear()
-    spa_steps = builder.graph_counts().get("spa", {}).get("steps", 0)
-    t0 = time.perf_counter()
-    timed = 0
-    while timed < E2E_TIMED_MAX and (timed < E2E_TIMED or not pg.constraint_search_seconds
-                                     or "spa" not in pg.phase_seconds):
-        n = E2E_TIMED if timed == 0 else 8
-        drive(builder, course[n_warm + timed:n_warm + timed + n])
-        timed += n
-    builder.flush()
-    pg.wait_for_all_computations()
-    torch.cuda.synchronize()
-    timed_s = time.perf_counter() - t0
+    timed, timed_s, solves = timed_stretch("mapping", builder, course, n_warm)
     course = course[:n_warm + timed + 2 * E2E_PROFILED]
     lat = np.asarray(builder.local_slam_latency_seconds) * 1e3
     phases = dict(sorted(pg.phase_seconds.items()))
     search = np.asarray(pg.constraint_search_seconds)
-    solves = ((builder.graph_counts().get("spa", {}).get("steps", 0) - spa_steps)
-              // cfg.pose_graph.optimization_problem.max_num_iterations)
-    print(f"mapping: timed {timed} scans in {timed_s:.3f} s, holding {len(search)} loop searches and {solves} "
-          f"periodic SPA solves", flush=True)
-    check(len(search) >= 1 and solves >= 1,
-          f"mapping: the timed stretch of {timed} scans held a loop search ({len(search)}) and a periodic "
-          f"solve ({solves})")
-
-    def cycle(scans):
-        def run():
-            drive(builder, scans)
-            builder.flush()
-            pg.wait_for_all_computations()
-        return run
-
-    a = n_warm + timed
-    # the card's activity only: these figures read nothing else, and a
-    # profile with host ops took ~70 s to read here
-    prof, prof_wall = warm_profile([cycle(course[a:a + E2E_PROFILED]), cycle(course[a + E2E_PROFILED:])],
-                                   host=False)
-    busy, top = card_busy_ms(prof.events())
+    busy, top, prof_wall = profile_course(builder, course[n_warm + timed:])
 
     spa_before = pg.phase_seconds.get("spa", 0.0)
     builder.finish_trajectory()
@@ -1716,14 +1798,7 @@ def check_mapping(ga, ac, dev):
     results = builder.local_trajectory(0)
     stepped = len(results)
     graph_counts = check_graph_counts("mapping", builder.step_counts(), stepped)
-    backend_counts = builder.graph_counts()
-    print("mapping: backend programs (steps = warm-ups + replays; captures): " + "; ".join(
-        f"{k} {v['steps']} = {v['warmups']} + {v['replays']}; {v['captures']}"
-        for k, v in backend_counts.items() if k not in ("step", "ndt")), flush=True)
-    for name in ("search_initial", "spa"):
-        c = backend_counts.get(name, {})
-        check(c.get("captures", 0) >= 1 and c.get("replays", 0) >= 1,
-              f"mapping: the {name} program was captured and replayed on the pool threads: {c}")
+    backend_counts = check_backend_programs("mapping", builder)
     held_backend = check_backend_held("mapping", backend_held, ("search_initial", "spa"))
     backend_graphs = measure_backend_graphs(pg)
     inserted = sum(r["inserted"] for r in results)
@@ -1752,14 +1827,7 @@ def check_mapping(ga, ac, dev):
     for name, ms, n in top:
         print(f"mapping: profiled card time {ms:9.2f} ms in {n:6d} x {name[:90]}")
 
-    check(builder.initialized, "MapBuilder initialized")
-    for k, r in enumerate(results):
-        check(np.all(np.isfinite(r["local_pose"].translation))
-              and np.all(np.isfinite(r["local_pose"].rotation)), f"local pose {k} finite")
-        check(not r["failed"], f"scan {k}: FailureDetection reset")
-    for k, (_, pose) in enumerate(builder.optimized_node_poses()):
-        check(np.all(np.isfinite(pose.translation)) and np.all(np.isfinite(pose.rotation)),
-              f"node {k} pose finite")
+    check_trajectory("mapping", builder, results)
     check(drops == 0, f"no dropped dense groups ({drops})")
     check(inter >= 1, "at least one INTER constraint")
     check(final_spa_s > 0.0, "the final optimization ran")
@@ -1826,7 +1894,7 @@ def check_mapping(ga, ac, dev):
                       "backend_graphs": backend_graphs, "programs_mib": programs_memory(pg)}
 
 
-def programs_memory(pg):
+def programs_memory(pg, tag="mapping"):
     """The device memory (MiB allocated, reserved) that the pose graph's
     programs held: what dropping them (as dropping the pose graph does)
     gives back, unused cache emptied."""
@@ -1840,9 +1908,9 @@ def programs_memory(pg):
     gc.collect()
     torch.cuda.empty_cache()
     mib = [(b - a) / 2**20 for a, b in zip((torch.cuda.memory_allocated(), torch.cuda.memory_reserved()), before)]
-    print(f"mapping: the pose graph's {n} programs (graphs, static buffers, pools, static grids) held "
+    print(f"{tag}: the pose graph's {n} programs (graphs, static buffers, pools, static grids) held "
           f"{mib[0]:.1f} MiB allocated, {mib[1]:.1f} MiB reserved; freed with them", flush=True)
-    check(mib[1] > 0, f"mapping: dropping the pose graph's programs gave back no memory ({mib})")
+    check(mib[1] > 0, f"{tag}: dropping the pose graph's programs gave back no memory ({mib})")
     return {"allocated": mib[0], "reserved": mib[1]}
 
 
@@ -3203,6 +3271,261 @@ def check_loop_tools(ga, ac, dev, tmp):
     return k2, {"loop_recall": recall, "long_course": course, "seconds": seconds}
 
 
+# bench.py's frontend line: its keys, in its order (tests/test_torch_bench.py holds bench_torch's to them)
+BENCH_FRONTEND_KEYS = ("metric", "value", "unit", "vs_baseline", "brick_groups_dropped",
+                       "low_brick_groups_dropped", "dense_groups_dropped")
+FLAGSHIP_WARM_MORE = 48  # phase 15 (b): at most this many scans past E2E_WARM, 8 at a time, for an INTER
+FLAGSHIP_WINDOW_MAX = 3  # steps held across the first submap finish after the warm-up
+PHASE15_AIM_S = 120.0
+
+
+def check_bench_frontend(ga, ac, dev):
+    """Phase 15 (a): `bench_torch.main` with BENCH_E2E=0, bench.py's
+    frontend run on the port: its one JSON line, bench.py's keys, zero
+    drops, and K1 twice and K2 once per scan of its WARMUP + MEASURE
+    chunks (the warm-up's eager chunk, then the replays)."""
+    import contextlib
+    import io
+    import os
+
+    import bench_torch
+
+    saved = {k: os.environ.get(k) for k in ("BENCH_E2E", "BENCH_E2E_FLAGSHIP")}
+    os.environ["BENCH_E2E"] = "0"
+    os.environ.pop("BENCH_E2E_FLAGSHIP", None)
+    out = io.StringIO()
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the main path starts: zero the launch counts
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            got = bench_torch.main(device=dev)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
+                "affine_chain": ac.LAUNCHES}
+    lines = out.getvalue().strip().splitlines()
+    print(f"bench frontend: bench_torch.main() with BENCH_E2E=0 in {seconds:.1f} s printed: {lines}", flush=True)
+    check(len(lines) == 1 and json.loads(lines[0]) == got, "bench frontend: one JSON line")
+    check(tuple(got) == BENCH_FRONTEND_KEYS, f"bench frontend: keys {tuple(got)} are bench.py's")
+    check(not any(got[k] for k in BENCH_FRONTEND_KEYS[4:]) and got["value"] > 0,
+          f"bench frontend: zero drops and a rate: {got}")
+    scans = (bench_torch.WARMUP + bench_torch.MEASURE) * bench_torch.CHUNK
+    check(launches == {"grouped_apply": 2 * scans, "grouped_apply_dense": 0, "affine_chain": scans},
+          f"bench frontend: launches {launches} for {scans} scans (K1 2, K2 1 a scan)")
+    return launches, {"line": got, "seconds": seconds, "scans": scans}
+
+
+def record_flagship_window(builder, n_range_data):
+    """Phase 15 (b)'s held window: from the first step after the warm-up
+    (`rec["open"]` set by the caller) that can finish a submap (its
+    pre-step back slot one insert short of `n_range_data`, two submaps
+    made) to the step after the finish (the slot recycle), at most
+    FLAGSHIP_WINDOW_MAX steps (a window the motion filter stretches past that
+    is dropped, and the next opens): each replay held against the eager step from
+    the same pre-step state (`hold_steps`), and every grouped brick K1 call
+    of that eager step against its plain version on a CPU copy of the same
+    bank and tables, bit for bit."""
+    from dliom_tpu_torch.mapping.submap import back_slot
+    from dliom_tpu_torch.ops import grouped_apply as ga
+
+    rows = ga.apply_grouped_rows
+    win = {"open": False, "start": None, "finished": None, "end": None, "calls": [], "restarts": 0}
+
+    def select(k, rec):
+        if not win["open"] or (win["end"] is not None and k >= win["end"]):
+            return False
+        if win["start"] is not None and win["finished"] is None and k >= win["start"] + FLAGSHIP_WINDOW_MAX:
+            # the motion filter skipped the inserts that were due: drop this
+            # window and open the next at the next step that can finish
+            for j in range(win["start"], k):
+                rec["held"].pop(j, None)
+            win["calls"] = [c for c in win["calls"] if c["step"] < win["start"]]
+            win["start"] = None
+            win["restarts"] += 1
+        if win["start"] is None:
+            sm = builder.trajectory(0)._lio.frontend.submaps
+            due = int(sm.num_created) >= 2 and int(sm.num_range_data[back_slot(sm)]) == n_range_data - 1
+            if not due:
+                return False
+            win["start"] = k
+        return k < win["start"] + FLAGSHIP_WINDOW_MAX
+
+    def after(k, state, res, rec):
+        if win["start"] is not None and win["finished"] is None and int(res.scan.finished_submap) >= 0:
+            win["finished"], win["end"] = k, k + 2
+
+    rec = hold_steps(select, after=after)
+
+    def rows_recording(pool, r, starts, ends, keys, **kw):
+        if not rec["eager"]:
+            return rows(pool, r, starts, ends, keys, **kw)
+        cpu = [x.to("cpu", copy=True) for x in (pool, r, starts, ends, keys)]
+        before = cpu[0].clone()  # the plain version updates its bank in place
+        fresh = kw.get("fresh")
+        kw_cpu = dict(kw, fresh=None if fresh is None else fresh.cpu())
+        out = rows(pool, r, starts, ends, keys, **kw)
+        want = ga.apply_grouped_rows_plain(*cpu, **kw_cpu)
+        win["calls"].append(dict(step=rec["n"], cells_per_group=kw["cells_per_group"], steps=int(r.numel()),
+                                 records=int((ends - starts).clamp(min=0).sum()),
+                                 equal=torch.equal(out.cpu(), want), changed=not torch.equal(want, before)))
+        return out
+
+    restore_steps = rec["restore"]
+
+    def restore():
+        restore_steps()
+        ga.apply_grouped_rows = rows
+
+    ga.apply_grouped_rows = rows_recording
+    rec["restore"], rec["window"] = restore, win
+    return rec
+
+
+def check_flagship(ga, ac, dev):
+    """Phase 15 (b): bench_torch's flagship config on the bench_e2e course
+    cut as phase 8 cuts it; see the module docstring."""
+    import bench_torch
+
+    from dliom_tpu_torch.map_builder import MapBuilder
+
+    cfg = bench_torch.e2e_config(flagship=True)
+    sm_cfg = cfg.trajectory_builder.submaps
+    check(sm_cfg.use_brick_grid and sm_cfg.use_brick_grid_low and sm_cfg.brick_apply_groups == 512
+          and sm_cfg.low_brick_apply_groups == 192 and sm_cfg.high_resolution_extent == 448
+          and sm_cfg.low_resolution_extent == 288, "flagship: bench.py's dual-brick grids and crops")
+    n_warm = E2E_STATIC + E2E_WARM
+    course = e2e_course(n_warm + FLAGSHIP_WARM_MORE + E2E_TIMED_MAX + 2 * E2E_PROFILED, radius=E2E_RADIUS)
+    torch.cuda.reset_peak_memory_stats()
+    builder = MapBuilder(cfg, use_background_threads=True, pipeline_depth=1, device=dev)
+    pg = builder.pose_graph
+    rec = record_flagship_window(builder, sm_cfg.num_range_data)
+    backend_held = hold_backend_graphs()
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the main path starts: zero the launch counts
+    t_all = time.perf_counter()
+    n_warm = warm_until_inter(builder, course, n_warm, E2E_STATIC + E2E_WARM + FLAGSHIP_WARM_MORE)
+    warm_s = time.perf_counter() - t_all
+    warm_phases = dict(sorted(pg.phase_seconds.items()))
+    print(f"flagship: warm-up {n_warm} scans in {warm_s:.1f} s; nodes {len(pg.nodes)} submaps {len(pg.submaps)} "
+          f"INTER {pg.num_inter_constraints()}; searches {len(pg.constraint_search_seconds)} "
+          f"({sum(pg.constraint_search_seconds):.3f} s, the captures included); phase_seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in warm_phases.items()), flush=True)
+    rec["window"]["open"] = True  # hold the first finish of the timed stretch
+    timed, timed_s, solves = timed_stretch("flagship", builder, course, n_warm,
+                                           lambda: rec["window"]["finished"] is None)
+    lat = np.asarray(builder.local_slam_latency_seconds) * 1e3
+    phases = dict(sorted(pg.phase_seconds.items()))
+    search = np.asarray(pg.constraint_search_seconds)
+    a = n_warm + timed
+    busy, top, prof_wall = profile_course(builder, course[a:a + 2 * E2E_PROFILED])
+    spa_before = pg.phase_seconds.get("spa", 0.0)
+    builder.finish_trajectory()
+    torch.cuda.synchronize()
+    final_spa_s = pg.phase_seconds.get("spa", 0.0) - spa_before
+    total_s = time.perf_counter() - t_all
+    launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
+                "affine_chain": ac.LAUNCHES}
+    rec["restore"]()
+    backend_held["restore"]()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+
+    results = builder.local_trajectory(0)
+    stepped = len(results)
+    graph_counts = check_graph_counts("flagship", builder.step_counts(), stepped)
+    backend_counts = check_backend_programs("flagship", builder)
+    held_backend = check_backend_held("flagship", backend_held, ("decompress", "search_initial", "spa"))
+    backend_graphs = measure_backend_graphs(pg)
+    sm = builder.trajectory(0)._lio.frontend.submaps
+    drops = {"brick": int(sm.high_brick.dropped[0]), "low_brick": int(sm.low_brick.dropped[0]),
+             "dense": int(sm.dense_dropped[0])}
+    capacity = (pg._compress_capacity, pg.low_compress_capacity)
+    counts = [(sid, int(s.high.count), int(s.low.count)) for sid, s in enumerate(pg.submaps)
+              if s.finished and s.high is not None]
+    saturated = [c for c in counts if c[1] >= capacity[0] or c[2] >= capacity[1]]
+    cached = [t for hit in pg._grid_cache.values() for t in (hit[0], hit[1], *hit[2].levels)]
+    cache_mib = sum(t.numel() * t.element_size() for t in cached) / 2**20
+    inter = pg.num_inter_constraints()
+    inserted = sum(r["inserted"] for r in results)
+    print(f"flagship: {len(course[:a + 2 * E2E_PROFILED])} scans ({E2E_STATIC} static, {n_warm - E2E_STATIC} "
+          f"warm-up, {timed} timed, {E2E_PROFILED} + {E2E_PROFILED} profiled) in {total_s:.1f} s (warm-up "
+          f"{warm_s:.1f} s); {stepped} stepped, {inserted} inserted; nodes {len(pg.nodes)} submaps "
+          f"{len(pg.submaps)} constraints {len(pg.constraints)} INTER {inter}; final optimization "
+          f"{final_spa_s:.2f} s; launches {launches}", flush=True)
+    print(f"flagship: timed {timed} scans in {timed_s:.3f} s = {timed / timed_s:.3f} scans/s; scan latency "
+          f"p50 {np.percentile(lat, 50):.1f} ms p99 {np.percentile(lat, 99):.1f} ms; {len(search)} searches "
+          f"(p50 {np.percentile(search, 50):.3f} s), {solves} periodic solves; phase_seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()), flush=True)
+    print(f"flagship: profiled {E2E_PROFILED} scans (card activity only): {prof_wall / E2E_PROFILED:.1f} ms/scan "
+          f"wall, card busy {busy / E2E_PROFILED:.2f} ms/scan, idle share {1 - busy / prof_wall:.3f}; peak "
+          f"device memory {peak_mib:.0f} MiB; the grid cache holds {len(pg._grid_cache)} decompressed submaps "
+          f"(grids and pyramids) in {cache_mib:.1f} MiB", flush=True)
+    for name, ms, n in top:
+        print(f"flagship: profiled card time {ms:9.2f} ms in {n:6d} x {name[:90]}")
+    print(f"flagship: drop gauges {drops} (bench.py's 512 / 192 apply groups, not raised: two active submaps "
+          f"take every scan); captured cells of each finished submap (id, high, low) {counts} against "
+          f"capacities {capacity}: {'saturated ' + str(saturated) if saturated else 'none saturated'}",
+          flush=True)
+
+    check_trajectory("flagship", builder, results)
+    check(inter >= 1, "flagship: at least one INTER constraint")
+    check(final_spa_s > 0.0, "flagship: the final optimization ran")
+    check(stepped == rec["n"] > 0, f"flagship: {stepped} results for {rec['n']} steps")
+    # the insert runs masked where the motion filter skips: the grouped
+    # brick K1 on both grids every step
+    check(launches == {"grouped_apply": 2 * stepped, "grouped_apply_dense": 0, "affine_chain": stepped},
+          f"flagship: launches {launches} for {stepped} stepped scans (K1 brick 2, K2 1 a scan)")
+    win = rec["window"]
+    check(win["finished"] is not None, f"flagship: a submap finished in the held window {win}")
+    held_steps = sorted(rec["held"])
+    check(held_steps == list(range(win["start"], win["finished"] + 2))
+          and len(held_steps) <= FLAGSHIP_WINDOW_MAX,
+          f"flagship: held steps {held_steps} run from the window's start {win['start']} to the step after the "
+          f"finish {win['finished']}")
+    held = check_held("flagship", rec["held"])
+    calls = win["calls"]
+    check(len(calls) == 2 * len(held_steps), f"flagship: {len(calls)} brick K1 calls held for "
+          f"{len(held_steps)} steps (high and low each)")
+    for c in calls:
+        check(c["equal"], f"flagship: grouped brick K1 on the card against plain at step {c['step']}: {c}")
+    check(any(c["changed"] for c in calls), "flagship: the window's inserts wrote the banks")
+    print(f"flagship: steps {held_steps} (submap finished at step {win['finished']}) held against the eager "
+          f"step; its {len(calls)} grouped brick K1 calls bit-identical to plain on a CPU copy "
+          f"({', '.join(str(c['records']) + ' records / ' + str(c['steps']) + ' steps' for c in calls)})",
+          flush=True)
+    return launches, {"scans_per_s": timed / timed_s, "timed_scans": timed, "timed_solves": solves,
+                      "warm_up_scans": n_warm - E2E_STATIC, "compiled_step": graph_counts,
+                      "graph_vs_eager": held, "p50_ms": float(np.percentile(lat, 50)),
+                      "p99_ms": float(np.percentile(lat, 99)), "inter": inter, "nodes": len(pg.nodes),
+                      "submaps": len(pg.submaps), "idle_share": 1 - busy / prof_wall, "phase_seconds": phases,
+                      "final_spa_s": final_spa_s, "search_s": search.tolist(),
+                      "warm_up_phase_seconds": warm_phases, "drops": drops, "captured_counts": counts,
+                      "compress_capacity": capacity, "saturated": saturated, "peak_mib": peak_mib,
+                      "grid_cache_mib": cache_mib, "grid_cache_submaps": len(pg._grid_cache),
+                      "held_window": held_steps, "k1_brick_calls_held": len(calls),
+                      "backend_counts": backend_counts, "backend_held": held_backend,
+                      "backend_graphs": backend_graphs, "programs_mib": programs_memory(pg, "flagship"),
+                      "seconds": total_s}
+
+
+def check_bench(ga, ac, dev):
+    """Phase 15: bench_torch.py on the card, (a) its frontend and (b) its
+    flagship course, cut."""
+    t0 = time.perf_counter()
+    front_launches, front = check_bench_frontend(ga, ac, dev)
+    t1 = time.perf_counter()
+    gc.collect()
+    flag_launches, flagship = check_flagship(ga, ac, dev)
+    seconds = time.perf_counter() - t0
+    print(f"phase 15: {seconds:.1f} s (aim {PHASE15_AIM_S:.0f} s; (a) {t1 - t0:.1f}, (b) {seconds - t1 + t0:.1f})",
+          flush=True)
+    return {"bench_frontend": front_launches, "flagship": flag_launches}, {
+        "frontend": front, "flagship": flagship, "seconds": seconds}
+
+
 def main():
     start = time.perf_counter()
     card = environment()
@@ -3256,15 +3579,21 @@ def main():
         cloud_launches, cloud = check_cloud(ga, ac, get_device("cuda"), resumed, tmp)
         del resumed
         long_course_k2, loop_tools = check_loop_tools(ga, ac, get_device("cuda"), tmp)
+    gc.collect()
+    bench_launches, bench = check_bench(ga, ac, get_device("cuda"))
     check("jax" not in sys.modules and "msgpack" not in sys.modules, "no jax or msgpack imported")
     k2_launches = {"slice": launches["affine_chain"], "compiled": compiled_launches["affine_chain"],
                    "mapping": map_launches["affine_chain"],
                    "campus": campus_k2, "viral": viral_k2, "correlative": rtc_k2,
                    "checkpoint": io_launches["affine_chain"], "runner": runner_k2,
                    "batched": batched_launches["affine_chain"], "cloud": cloud_launches["affine_chain"],
-                   "long_course": long_course_k2}
+                   "long_course": long_course_k2,
+                   "bench_frontend": bench_launches["bench_frontend"]["affine_chain"],
+                   "flagship": bench_launches["flagship"]["affine_chain"]}
     k1_launches = {"slice": launches["grouped_apply"], "compiled": compiled_launches["grouped_apply"],
-                   "batched": batched_launches["grouped_apply"]}
+                   "batched": batched_launches["grouped_apply"],
+                   "bench_frontend": bench_launches["bench_frontend"]["grouped_apply"],
+                   "flagship": bench_launches["flagship"]["grouped_apply"]}
     dense_launches = {"mapping": map_launches["grouped_apply_dense"],
                       "checkpoint": io_launches["grouped_apply_dense"],
                       "batched": batched_launches["grouped_apply_dense"],
@@ -3273,6 +3602,7 @@ def main():
     print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "compiled": compiled, "mapping": mapping,
                       "campus": campus, "viral": viral, "correlative": correlative, "io": io,
                       "phase10_seconds": phase10_s, "batched": batched, "cloud": cloud, "loop_tools": loop_tools,
+                      "bench": bench,
                       "dense_kernels_per_call": dense_kernels, "empty_launch_graph_ms": launch_floor,
                       "grouped_apply_by_shape": {**k1, **k1d},
                       "affine_chain_by_length": k2, "affine_chain_launches": k2_launches,
@@ -3293,7 +3623,11 @@ def main():
                                                    f"a spawn within {DENSE_LANES_STEPS} steps",
                                   "campus": f"stepped scans after the initialization cut to {CAMPUS_STEPS}",
                                   "long_course": f"laps 2.0 -> {LONG_COURSE_LAPS}: the full course is ~2670 "
-                                                 "scans, ~45-70 min at the runner's rate"}}))
+                                                 "scans, ~45-70 min at the runner's rate",
+                                  "flagship": f"bench_e2e(flagship=True)'s course: the circle 5 m -> "
+                                              f"{E2E_RADIUS} m, its warm-up 235 scans -> "
+                                              f"{bench['flagship']['warm_up_scans']}; timed scans 209 -> "
+                                              f"{bench['flagship']['timed_scans']}"}}))
 
     def record(name, source, replaces, n, timed, err, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,
