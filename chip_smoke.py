@@ -257,6 +257,41 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      capacities (1 << 18 high, 1 << 16 low), the drop gauges (bench.py's
      capacities, not gated: bench.py gates only its frontend's), scans/s,
      p50 / p99, phase_seconds and the idle share.
+ 16. the mesh (`common/mesh.py`), after phase 15: MESH_SHARDS distinct
+     cards where the machine has that many, else MESH_SHARDS shards on
+     cuda:0 (which runs the sharded code but no cross-card copy; the mesh
+     and its distinct devices are printed). (a) `sharded_lio_step` at the
+     bench config, MESH_LANES lanes a shard (K1 capacities
+     SPAWN_CAPACITIES x MESH_LANES), MESH_WARMUP step, then MESH_HELD
+     steps each held shard by shard against the eager batched body from
+     the same pre-step state (integers bit for bit, floats within
+     HELD_ATOL), then MESH_TIMED timed steps (nothing cloned inside the
+     window) beside the unsharded batched step at the same B on the first
+     card (aggregate scans/s); K1 2 and K2 1 launches a shard a step,
+     counted through the replays (D times a shard's), the step counts, no
+     drops, finite poses; (b) `optimization.solve(mesh=)` on phase 8's
+     final pose-graph data with its node poses perturbed on a fixed seed
+     (MESH_SPA_PERTURB: phase 8's final optimization already solved it),
+     its constraint rows dealt round the shards so that each holds valid
+     ones, against the unsharded solve, MESH_SPA_ITERATIONS eager GN steps
+     each: the solve must move a node by more than MESH_SPA_MOVES (100
+     times the tolerance), poses within MESH_SPA_ATOL, ms a GN step for
+     both; (c) phase 8's largest with-initial search chunk (the first of
+     them that found a node) through `PoseGraph(mesh=)` against an
+     unsharded pose graph: found and score equal, poses within
+     MESH_POSE_ATOL (per metre of the largest translation above 1 m: the
+     pieces' GN refinement rounds apart in the last f32 bits), the ms of
+     a replay of each; (d) `MapBuilder(mesh=)` with its pool threads on
+     MESH_BUILDER_SCANS scans of phase 8's course (num_range_data 4 and
+     optimize_every_n_nodes 16, so that submaps finish and solves fall
+     early; 8 more at a time until the pool ran a search and a solve), its
+     compiled-step counts, K1 dense 2 and K2 1 launches a stepped scan,
+     finite poses; every search chunk and sharded SPA solve it ran, each
+     on a pool thread (streams on every card of the mesh, the search
+     programs on every card where a chunk is as wide as the mesh), held
+     against an unsharded pose graph on the same inputs: found and score
+     equal, poses within MESH_POSE_ATOL per metre, the solves within
+     MESH_SPA_ATOL.
 
 Phase 8 compares step by step, not the free-running CPU trajectory: on
 this course an input change of 1e-6 moves the CPU run's fifth local pose
@@ -300,12 +335,14 @@ the last line is {"ok": true, "device": {...}}. Imports nothing of JAX and
 never msgpack.
 """
 
+import collections
 import gc
 import importlib.util
 import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1752,6 +1789,7 @@ def check_mapping(ga, ac, dev):
                         radius=E2E_RADIUS)
     builder = MapBuilder(cfg, use_background_threads=True, pipeline_depth=1, device=dev)
     pg = builder.pose_graph
+    record_search_chunk(pg)
     rec = record_steps(set(range(E2E_COMPARE)), E2E_BANK_FROM, E2E_BANK_MAX)
     backend_held = hold_backend_graphs()
     ga.LAUNCHES = 0  # the main path starts: zero the launch counts
@@ -1782,6 +1820,8 @@ def check_mapping(ga, ac, dev):
     torch.cuda.synchronize()
     final_spa_s = pg.phase_seconds.get("spa", 0.0) - spa_before
     total_s = time.perf_counter() - t_all
+    MESH_INPUTS["problem"] = pg._build_problem()  # phase 16 (b): the final pose-graph data
+    kept_search_chunk()  # phase 16 (c)
     accuracy["finished"] = e2e_accuracy(pg, course)
     print(f"mapping: e2e evaluator at bench_e2e's config after finish_trajectory() ({len(course)} scans, the "
           f"final optimization run): {fmt_accuracy(accuracy['finished'])}", flush=True)
@@ -3526,6 +3566,385 @@ def check_bench(ga, ac, dev):
         "frontend": front, "flagship": flagship, "seconds": seconds}
 
 
+# ----- phase 16: the mesh -----
+
+MESH_SHARDS = 4  # shards of phase 16's mesh: distinct cards where there are that many, else on cuda:0
+MESH_LANES = 2  # lanes per shard in (a)
+MESH_WARMUP = 1
+MESH_HELD = 3  # (a): replays held against each shard's eager step
+MESH_TIMED = 6  # (a): steps timed, sharded and unsharded (lane_scans' ten poses end there)
+MESH_SPA_ITERATIONS = 3  # (b): GN steps of each solve
+MESH_SPA_ATOL = 1e-5  # (b), (d): sharded against unsharded poses, the order of the partial sums only
+MESH_SPA_PERTURB = (0.005, 0.001)  # (b): normal noise (seed 0) on the node translations (m) and quaternions
+# (at 10 times this the solve moved a node 0.19 m and the sharded poses came 8.5e-6 from unsharded: the
+# partial sums' order rounds in proportion to the step)
+MESH_SPA_MOVES = 100 * MESH_SPA_ATOL  # (b): the solve must move a node by more than this (m)
+MESH_BUILDER_SCANS = 64  # (d): scans of phase 8's course through MapBuilder(mesh=)
+MESH_BUILDER_MORE = 32  # (d): at most this many more, 8 at a time, until the pool ran a search and a solve
+MESH_BUILDER_RANGE_DATA = 4  # (d): submaps.num_range_data 16 -> 4, so submaps finish (and searches run) early
+MESH_BUILDER_OPTIMIZE = 16  # (d): pose_graph.optimize_every_n_nodes 32 -> 16
+MESH_POSE_ATOL = 1e-6  # (c): a chunk's refined poses, split over the shards against one batch, per metre
+# of the chunk's largest translation where that is over 1 m: the batched GN refinement of a piece
+# rounds apart from that of the whole chunk in the last f32 bits, which scale with the translation
+PHASE16_AIM_S = 60.0
+MESH_INPUTS = {}  # phase 8's first with-initial search chunk and its final problem, for phase 16
+
+
+def record_search_chunk(pg):
+    """Keep the with-initial search chunks of the largest node count that
+    `pg` runs (the target submap's cached grids, the host arrays and the
+    packed result: none is rewritten later); `kept_search_chunk` picks
+    phase 16 (c)'s from them."""
+    search = pg._search
+    kept = MESH_INPUTS["chunks"] = []
+
+    def recorded(kind, hit, arrays):
+        out = search(kind, hit, arrays)
+        if kind == "search_initial":
+            if kept and len(arrays[0]) > len(kept[0][1][0]):
+                kept.clear()
+            if not kept or len(arrays[0]) == len(kept[0][1][0]):
+                kept.append((hit, arrays, out))
+        return out
+
+    pg._search = recorded
+
+
+def kept_search_chunk():
+    """Of the chunks `record_search_chunk` kept (all searches ended), the
+    first that found a node, else the first; its grids copied to the host
+    until phase 16."""
+    chunks = MESH_INPUTS.pop("chunks", [])
+    if chunks:
+        hit, arrays, _ = next((c for c in chunks if bool((c[2][:, 0] > 0.5).any())), chunks[0])
+        MESH_INPUTS["chunk"] = (tree_cpu(hit), arrays)
+
+
+def phase_mesh():
+    """Phase 16's mesh: MESH_SHARDS distinct cards, or as many shards on
+    cuda:0 where there are fewer cards."""
+    from dliom_tpu_torch.common.mesh import Mesh, make_mesh
+
+    n = torch.cuda.device_count()
+    return make_mesh(MESH_SHARDS) if n >= MESH_SHARDS else Mesh((torch.device("cuda", 0),) * MESH_SHARDS)
+
+
+def sync_mesh(mesh):
+    for d in mesh.distinct_devices:
+        torch.cuda.synchronize(d)
+
+
+def mesh_lio(ga, ac, mesh):
+    """Phase 16 (a): `sharded_lio_step` at the bench config, MESH_LANES
+    lanes a shard; see the module docstring."""
+    from dliom_tpu_torch.common.mesh import shard_over_mesh
+    from dliom_tpu_torch.parallel.batch import (
+        batched_lio_body,
+        make_batched_lio_state,
+        make_batched_lio_step,
+        make_sharded_lio_state,
+        sharded_lio_step,
+    )
+
+    d = mesh.size
+    batch = MESH_LANES * d
+    cfg = batched_config(BENCH_OVERRIDES, MESH_LANES, SPAWN_CAPACITIES).trajectory_builder
+    scans = lane_scans(mesh.first, batch, MESH_WARMUP + MESH_HELD + MESH_TIMED)
+    sharded = [shard_over_mesh(s, mesh) for s in scans]
+    states = make_sharded_lio_state(cfg, batch, mesh)
+    step = sharded_lio_step(cfg, batch, mesh)
+    body = batched_lio_body(cfg, MESH_LANES)
+    held, results = {}, []
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the mesh's main path starts: zero the launch counts
+    t0 = time.perf_counter()
+    states, res = step(states, sharded[0])
+    sync_mesh(mesh)
+    warm_s = time.perf_counter() - t0
+    results.append(tree_clone(res))
+    for k in range(1, 1 + MESH_HELD):
+        pre = [tree_clone(st) for st in states]
+        states, res = step(states, sharded[k])
+        sync_mesh(mesh)
+        for s, dev in enumerate(mesh.devices):
+            with torch.cuda.device(dev):
+                want = without_launches(lambda: body(pre[s], sharded[k][s]))
+            held[(k, s)] = graph_vs_eager((states[s], res[s]), want)
+        results.append(tree_clone(res))
+    sync_mesh(mesh)
+    t0 = time.perf_counter()
+    for k in range(1 + MESH_HELD, len(sharded)):
+        states, res = step(states, sharded[k])
+    sync_mesh(mesh)
+    mesh_s = time.perf_counter() - t0
+    results.append(tree_clone(res))  # the last step's (no clone inside the timed window)
+    launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
+                "affine_chain": ac.LAUNCHES}
+    n_steps = len(sharded)
+    check(launches == {"grouped_apply": 2 * d * n_steps, "grouped_apply_dense": 0, "affine_chain": d * n_steps},
+          f"phase 16: sharded launches {launches} for {n_steps} steps over {d} shards (K1 2, K2 1 a shard a step)")
+    counts = step.counts()
+    check(counts == {"steps": d * n_steps, "warmups": d, "captures": d, "replays": d * (n_steps - 1)},
+          f"phase 16: sharded step counts {counts}")
+    held_out = check_held("mesh", {f"{k}/{s}": h for (k, s), h in held.items()})
+    drops = sum(int(b.dropped.sum()) for st in states for b in (st.frontend.submaps.high_brick,
+                                                                 st.frontend.submaps.low_brick))
+    check(drops == 0, f"phase 16: dropped grid updates {drops}")
+    for k, r in enumerate(results):
+        for s, rs in enumerate(r):
+            check(bool(torch.isfinite(rs.scan.local_pose.translation).all()) and not bool(rs.failed.any()),
+                  f"phase 16: step {k} shard {s}: finite poses, no failure")
+            check(rs.scan.local_pose.translation.device == mesh.devices[s], f"phase 16: shard {s}'s results "
+                  f"on {mesh.devices[s]}")
+
+    # the unsharded batched step at the same B, on the first card
+    from dliom_tpu_torch.common.mesh import gather
+
+    one_cfg = batched_config(BENCH_OVERRIDES, batch, SPAWN_CAPACITIES).trajectory_builder
+    one_state = make_batched_lio_state(one_cfg, batch, mesh.first)
+    one_step = make_batched_lio_step(one_cfg, batch)
+    one_state, _ = one_step(one_state, scans[0])
+    for k in range(1, 1 + MESH_HELD):
+        one_state, _ = one_step(one_state, scans[k])
+    torch.cuda.synchronize(mesh.first)
+    t0 = time.perf_counter()
+    for k in range(1 + MESH_HELD, len(scans)):
+        one_state, one_res = one_step(one_state, scans[k])
+    torch.cuda.synchronize(mesh.first)
+    one_s = time.perf_counter() - t0
+    last = gather(results[-1], "cpu")
+    one_pose = one_res.scan.local_pose.translation.cpu()
+    lane_diff = float((last.scan.local_pose.translation - one_pose).abs().max())
+    rate, one_rate = batch * MESH_TIMED / mesh_s, batch * MESH_TIMED / one_s
+    print(f"mesh: sharded_lio_step, B={batch} over {d} shards ({MESH_LANES} lanes each), bench config: first "
+          f"step (each shard's eager warm-up and capture) {warm_s:.2f} s; {MESH_TIMED} timed steps (host "
+          f"clock, synchronized either side, nothing cloned) {rate:.3f} scans/s aggregate beside the unsharded batched step at B={batch} on {mesh.first} "
+          f"{one_rate:.3f}; the last step's poses sharded vs unsharded differ by {lane_diff:.3e} m (free-running "
+          f"since the warm-up); launches {launches}", flush=True)
+    return launches, {"lanes": batch, "shards": d, "first_step_s": warm_s, "scans_per_s": rate,
+                      "unsharded_scans_per_s": one_rate, "held": held_out, "compiled_step": counts,
+                      "last_pose_vs_unsharded": lane_diff}
+
+
+def mesh_spa(mesh):
+    """Phase 16 (b): `optimization.solve(mesh=)` on phase 8's final
+    pose-graph data against the unsharded GN from the same data. The
+    problem's valid constraint rows fill its first rows, so the sharded
+    solve takes the rows dealt round the shards (row i to shard i % D,
+    every shard then holds valid rows): the same problem, its rows in
+    another order."""
+    from dliom_tpu_torch.backend import optimization as opt
+    from dliom_tpu_torch.backend.pose_graph import _spa_settings
+    from dliom_tpu_torch.common.config import load_config
+
+    host, n_sub, n_node, blocks = MESH_INPUTS["problem"]
+    host = dict(host)  # phase 8 solved it already: its node poses perturbed so that the solve moves them
+    rng = np.random.default_rng(0)
+    t, q = host["node_t"].copy(), host["node_q"].copy()
+    t[:n_node] += rng.normal(0.0, MESH_SPA_PERTURB[0], (n_node, 3)).astype(t.dtype)
+    q[:n_node] += rng.normal(0.0, MESH_SPA_PERTURB[1], (n_node, 4)).astype(q.dtype)
+    q[:n_node] /= np.linalg.norm(q[:n_node], axis=-1, keepdims=True)
+    host["node_t"], host["node_q"] = t, q
+    op = load_config("basic", E2E_OVERRIDES).pose_graph.optimization_problem
+    kw = dict(iterations=MESH_SPA_ITERATIONS, **_spa_settings(op, blocks))
+    data = opt.PoseGraphData(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.first)
+                                for k, v in host.items()})
+    rows = host["c_valid"].shape[0]
+    dealt = torch.from_numpy(np.argsort(np.arange(rows) % mesh.size, kind="stable")).to(mesh.first)
+    spread = data._replace(**{f: getattr(data, f)[dealt] for f in opt._C_FIELDS})
+    per = -(-rows // mesh.size)
+    valid_per_shard = [int(spread.c_valid[k * per:(k + 1) * per].sum()) for k in range(mesh.size)]
+    out, ms = {}, {}
+    for name, m, d in (("unsharded", None, data), ("sharded", mesh, spread)):
+        opt.solve(d, mesh=m, **kw)  # warm-up
+        sync_mesh(mesh)
+        t0 = time.perf_counter()
+        out[name] = opt.solve(d, mesh=m, **kw)
+        sync_mesh(mesh)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / MESH_SPA_ITERATIONS
+    diff = max(float((getattr(out["sharded"], f) - getattr(out["unsharded"], f)).abs().max())
+               for f in ("submap_q", "submap_t", "node_q", "node_t", "lm_positions"))
+    n_c = int(host["c_valid"].sum())
+    moved = float((out["unsharded"].node_t - data.node_t).abs().max())
+    print(f"mesh: solve(mesh=) on phase 8's final problem, node poses perturbed by {MESH_SPA_PERTURB} "
+          f"(seed 0) ({n_sub} submaps, {n_node} nodes, {n_c} of "
+          f"{rows} constraint rows, valid rows by shard {valid_per_shard}; {MESH_SPA_ITERATIONS} GN steps "
+          f"of 64 CG steps, eager): "
+          f"{ms['sharded']:.2f} ms a GN step over {mesh.size} shards, {ms['unsharded']:.2f} ms unsharded; poses "
+          f"differ by {diff:.3e} (tolerance {MESH_SPA_ATOL}); the solve moved a node by up to {moved:.3e} m",
+          flush=True)
+    check(diff <= MESH_SPA_ATOL, f"phase 16: sharded SPA vs unsharded poses differ by {diff:.3e}")
+    check(moved > MESH_SPA_MOVES, f"phase 16: the solve moved a node by {moved:.3e} m, not more than "
+          f"{MESH_SPA_MOVES:.0e} m")
+    check(all(valid_per_shard) or n_c < mesh.size, f"phase 16: every shard holds valid rows {valid_per_shard}")
+    return {"gn_step_ms": ms["sharded"], "unsharded_gn_step_ms": ms["unsharded"], "pose_diff": diff,
+            "moved_m": moved, "constraints": n_c, "valid_rows_by_shard": valid_per_shard, "submaps": n_sub, "nodes": n_node}
+
+
+def chunk_diff(a, b):
+    """Two packed (B, 9) search results of one chunk, unsharded `a` and
+    sharded `b`: their largest pose difference and its tolerance,
+    MESH_POSE_ATOL per metre of the largest translation above 1 m."""
+    return float((a[:, 2:] - b[:, 2:]).abs().max()), MESH_POSE_ATOL * max(1.0, float(a[:, 6:9].abs().max()))
+
+
+def mesh_search(mesh, dev):
+    """Phase 16 (c): phase 8's with-initial search chunk through a pose
+    graph over the mesh against one without: found and score equal, poses
+    within MESH_POSE_ATOL; the second call of each (a replay) timed."""
+    from torch.utils._pytree import tree_map
+
+    from dliom_tpu_torch.backend.pose_graph import PoseGraph
+    from dliom_tpu_torch.common.config import load_config
+    from dliom_tpu_torch.common.mesh import split_sizes
+
+    hit, arrays = MESH_INPUTS["chunk"]
+    hit = tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x, hit)
+    cfg = load_config("basic", E2E_OVERRIDES)
+    out, ms = {}, {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        pg = PoseGraph(cfg.pose_graph, cfg.trajectory_builder, device=dev, mesh=m)
+        pg._search("search_initial", hit, arrays)  # warm-up and capture
+        sync_mesh(mesh)
+        t0 = time.perf_counter()
+        out[name] = pg._search("search_initial", hit, arrays).cpu()
+        sync_mesh(mesh)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        del pg
+    a, b = out["unsharded"], out["sharded"]
+    pose, pose_tol = chunk_diff(a, b)
+    found = int((a[:, 0] > 0.5).sum())
+    print(f"mesh: phase 8's with-initial search chunk of {a.shape[0]} nodes over {mesh.size} shards (pieces of "
+          f"{' / '.join(str(n) for n in split_sizes(a.shape[0], mesh))}): "
+          f"{ms['sharded']:.2f} ms against {ms['unsharded']:.2f} ms unsharded (a replay each, host clock, "
+          f"synchronized); {found} found; found and score equal: {torch.equal(a[:, :2], b[:, :2])}; "
+          f"poses differ by {pose:.3e} (tolerance {pose_tol:.3e})", flush=True)
+    check(torch.equal(a[:, :2], b[:, :2]), f"phase 16: the chunk's found and score differ: {a[:, :2]} {b[:, :2]}")
+    check(pose <= pose_tol, f"phase 16: the chunk's poses differ by {pose:.3e}")
+    return {"nodes": a.shape[0], "found": found, "ms": ms["sharded"], "unsharded_ms": ms["unsharded"],
+            "pose_diff": pose, "pose_tolerance": pose_tol}
+
+
+def mesh_builder(ga, ac, mesh, dev):
+    """Phase 16 (d): `MapBuilder(mesh=)` with its pool threads on phase 8's
+    course (cut so that submaps finish and solves fall early), every loop
+    search chunk and SPA solve of its pool recorded, then each held against
+    an unsharded pose graph on the same inputs; see the module docstring."""
+    from dliom_tpu_torch.backend.pose_graph import PoseGraph
+    from dliom_tpu_torch.common.config import load_config
+    from dliom_tpu_torch.common.mesh import indexed
+    from dliom_tpu_torch.map_builder import MapBuilder
+
+    cfg = load_config("basic", E2E_OVERRIDES).override({
+        "trajectory_builder": {"submaps": {"num_range_data": MESH_BUILDER_RANGE_DATA}},
+        "pose_graph": {"optimize_every_n_nodes": MESH_BUILDER_OPTIMIZE}})
+    course = e2e_course(MESH_BUILDER_SCANS + MESH_BUILDER_MORE, radius=E2E_RADIUS)
+    builder = MapBuilder(cfg, use_background_threads=True, pipeline_depth=1, device=dev, mesh=mesh)
+    pg = builder.pose_graph
+    main_thread = threading.get_ident()
+    searches, solves = [], []  # appended on the pool threads
+    search, solve = pg._search, pg._solve
+
+    def recorded_search(kind, hit, arrays):
+        out = search(kind, hit, arrays)  # a new tensor, its task's streams drained before the task ends
+        searches.append((kind, hit, arrays, out, threading.get_ident()))
+        return out
+
+    def recorded_solve(problem, iterations, blocks):
+        out = solve(problem, iterations, blocks)
+        solves.append((problem, iterations, blocks, out, threading.get_ident()))
+        return out
+
+    pg._search, pg._solve = recorded_search, recorded_solve
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the builder's main path starts: zero the launch counts
+    t0 = time.perf_counter()
+    n = 0
+    while n < MESH_BUILDER_SCANS or (not (searches and solves) and n < MESH_BUILDER_SCANS + MESH_BUILDER_MORE):
+        more = MESH_BUILDER_SCANS if n == 0 else 8
+        drive(builder, course[n:n + more])
+        n += more
+        builder.flush()
+        pg.wait_for_all_computations()
+    course_s = time.perf_counter() - t0
+    launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
+                "affine_chain": ac.LAUNCHES}
+    pg._search, pg._solve = search, solve
+    results = builder.local_trajectory(0)
+    stepped = len(results)
+    counts = check_graph_counts("mesh builder", builder.step_counts(), stepped)
+    check_trajectory("mesh builder", builder, results)
+    check(launches == {"grouped_apply": 2 * stepped, "grouped_apply_dense": 2 * stepped, "affine_chain": stepped},
+          f"mesh builder: launches {launches} for {stepped} stepped scans (K1 dense 2, also counted as K1's; "
+          "K2 1 a scan)")
+    on_pool = (sum(t != main_thread for *_, t in searches), sum(t != main_thread for *_, t in solves))
+    check(searches and solves and on_pool == (len(searches), len(solves)),
+          f"mesh builder: {len(searches)} search chunks and {len(solves)} solves, {on_pool} of them on the "
+          "pool threads")
+    widest = max(len(arrays[0]) for _, _, arrays, _, _ in searches)
+    program_devices = {d for _, d in pg._programs_by_thread}
+    stream_devices = {d for _, d in pg._streams}
+    check(stream_devices == set(mesh.distinct_devices) | {indexed(pg.device)},
+          f"mesh builder: the pool tasks' streams on {sorted(map(str, stream_devices))}")
+    check(widest < mesh.size or program_devices == set(mesh.distinct_devices),
+          f"mesh builder: search programs on {sorted(map(str, program_devices))}, chunks up to {widest} nodes")
+
+    ref = PoseGraph(cfg.pose_graph, cfg.trajectory_builder, device=dev)
+    worst_pose, worst_spa, moved, found = 0.0, 0.0, 0.0, 0
+    for kind, hit, arrays, out, _ in searches:
+        want = ref._search(kind, hit, arrays).cpu()
+        got = out.cpu()
+        pose, tol = chunk_diff(want, got)
+        check(torch.equal(want[:, :2], got[:, :2]), f"mesh builder: a {kind} chunk's found and score differ: "
+              f"{want[:, :2]} {got[:, :2]}")
+        check(pose <= tol, f"mesh builder: a {kind} chunk's poses differ by {pose:.3e} (tolerance {tol:.3e})")
+        worst_pose, found = max(worst_pose, pose), found + int((got[:, 0] > 0.5).sum())
+    for problem, iterations, blocks, out, _ in solves:
+        want = ref._solve(problem, iterations, blocks)
+        before = np.concatenate([problem[f].reshape(-1) for f in ("submap_q", "submap_t", "node_q", "node_t",
+                                                                   "lm_positions")])
+        worst_spa = max(worst_spa, float(np.abs(out - want).max()))
+        moved = max(moved, float(np.abs(want - before).max()))
+    check(worst_spa <= MESH_SPA_ATOL, f"mesh builder: the pool's sharded solves differ from unsharded by "
+          f"{worst_spa:.3e}")
+    kinds = collections.Counter(k for k, *_ in searches)
+    print(f"mesh: MapBuilder(mesh=) with {cfg.map_builder.num_background_threads} pool threads on phase 8's "
+          f"course (num_range_data {MESH_BUILDER_RANGE_DATA}, optimize_every_n_nodes {MESH_BUILDER_OPTIMIZE}): "
+          f"{n} scans ({stepped} stepped) in {course_s:.1f} s, nodes {len(pg.nodes)} submaps {len(pg.submaps)} "
+          f"INTER {pg.num_inter_constraints()}; on the pool threads {len(searches)} search chunks "
+          f"({dict(kinds)}, up to {widest} nodes, {found} found) and {len(solves)} sharded solves; search "
+          f"programs on {sorted(map(str, program_devices))}, task streams on "
+          f"{sorted(map(str, stream_devices))}; held against an unsharded pose graph on the same inputs: "
+          f"found and score equal, poses within {worst_pose:.3e}; solves within {worst_spa:.3e} (tolerance "
+          f"{MESH_SPA_ATOL}; they moved a pose by up to {moved:.3e}); launches {launches}", flush=True)
+    del ref, builder, pg, searches, solves
+    return launches, {"scans": n, "stepped": stepped, "seconds": course_s, "search_chunks": dict(kinds),
+                      "solves": on_pool[1], "found": found, "chunk_pose_diff": worst_pose,
+                      "spa_pose_diff": worst_spa, "spa_moved": moved, "compiled_step": counts,
+                      "program_devices": sorted(map(str, program_devices)),
+                      "stream_devices": sorted(map(str, stream_devices))}
+
+
+def check_mesh(ga, ac, dev):
+    """Phase 16: the mesh scale-out; see the module docstring."""
+    t0 = time.perf_counter()
+    mesh = phase_mesh()
+    distinct = len(mesh.distinct_devices)
+    print(f"mesh: {mesh}; distinct_devices {distinct} of {torch.cuda.device_count()} cards"
+          + ("" if distinct > 1 else " (every shard on one card: the cross-card path is not run)"), flush=True)
+    launches, lio = mesh_lio(ga, ac, mesh)
+    t1 = time.perf_counter()
+    spa = mesh_spa(mesh)
+    t2 = time.perf_counter()
+    search = mesh_search(mesh, dev)
+    t3 = time.perf_counter()
+    builder_launches, builder = mesh_builder(ga, ac, mesh, dev)
+    seconds = time.perf_counter() - t0
+    print(f"phase 16: {seconds:.1f} s (aim {PHASE16_AIM_S:.0f} s; (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+          f"(c) {t3 - t2:.1f}, (d) {seconds - t3 + t0:.1f})", flush=True)
+    return {**launches, "builder": builder_launches}, {
+        "mesh": [str(d) for d in mesh.devices], "distinct_devices": distinct, "lio": lio, "spa": spa,
+        "search": search, "builder": builder, "seconds": seconds}
+
+
 def main():
     start = time.perf_counter()
     card = environment()
@@ -3581,6 +4000,8 @@ def main():
         long_course_k2, loop_tools = check_loop_tools(ga, ac, get_device("cuda"), tmp)
     gc.collect()
     bench_launches, bench = check_bench(ga, ac, get_device("cuda"))
+    gc.collect()
+    mesh_launches, mesh = check_mesh(ga, ac, get_device("cuda"))
     check("jax" not in sys.modules and "msgpack" not in sys.modules, "no jax or msgpack imported")
     k2_launches = {"slice": launches["affine_chain"], "compiled": compiled_launches["affine_chain"],
                    "mapping": map_launches["affine_chain"],
@@ -3589,20 +4010,24 @@ def main():
                    "batched": batched_launches["affine_chain"], "cloud": cloud_launches["affine_chain"],
                    "long_course": long_course_k2,
                    "bench_frontend": bench_launches["bench_frontend"]["affine_chain"],
-                   "flagship": bench_launches["flagship"]["affine_chain"]}
+                   "flagship": bench_launches["flagship"]["affine_chain"],
+                   "mesh": mesh_launches["affine_chain"],
+                   "mesh_builder": mesh_launches["builder"]["affine_chain"]}
     k1_launches = {"slice": launches["grouped_apply"], "compiled": compiled_launches["grouped_apply"],
                    "batched": batched_launches["grouped_apply"],
                    "bench_frontend": bench_launches["bench_frontend"]["grouped_apply"],
-                   "flagship": bench_launches["flagship"]["grouped_apply"]}
+                   "flagship": bench_launches["flagship"]["grouped_apply"],
+                   "mesh": mesh_launches["grouped_apply"]}
     dense_launches = {"mapping": map_launches["grouped_apply_dense"],
                       "checkpoint": io_launches["grouped_apply_dense"],
                       "batched": batched_launches["grouped_apply_dense"],
-                      "cloud": cloud_launches["grouped_apply_dense"]}
+                      "cloud": cloud_launches["grouped_apply_dense"],
+                      "mesh_builder": mesh_launches["builder"]["grouped_apply_dense"]}
 
     print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "compiled": compiled, "mapping": mapping,
                       "campus": campus, "viral": viral, "correlative": correlative, "io": io,
                       "phase10_seconds": phase10_s, "batched": batched, "cloud": cloud, "loop_tools": loop_tools,
-                      "bench": bench,
+                      "bench": bench, "mesh": mesh,
                       "dense_kernels_per_call": dense_kernels, "empty_launch_graph_ms": launch_floor,
                       "grouped_apply_by_shape": {**k1, **k1d},
                       "affine_chain_by_length": k2, "affine_chain_launches": k2_launches,
@@ -3627,7 +4052,12 @@ def main():
                                   "flagship": f"bench_e2e(flagship=True)'s course: the circle 5 m -> "
                                               f"{E2E_RADIUS} m, its warm-up 235 scans -> "
                                               f"{bench['flagship']['warm_up_scans']}; timed scans 209 -> "
-                                              f"{bench['flagship']['timed_scans']}"}}))
+                                              f"{bench['flagship']['timed_scans']}",
+                                  "mesh_builder": f"phase 8's course cut to {mesh['builder']['scans']} scans; "
+                                                  f"submaps.num_range_data 16 -> {MESH_BUILDER_RANGE_DATA}, "
+                                                  "pose_graph.optimize_every_n_nodes 32 -> "
+                                                  f"{MESH_BUILDER_OPTIMIZE}; no final optimization (400 "
+                                                  "eager sharded GN steps)"}}))
 
     def record(name, source, replaces, n, timed, err, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,

@@ -26,6 +26,8 @@ from typing import NamedTuple
 import torch
 from torch.func import vjp
 
+from dliom_tpu_torch.common import mesh as _mesh
+from dliom_tpu_torch.common.mesh import Mesh, shard_over_mesh
 from dliom_tpu_torch.ops.segment import segment_plan, segment_sum
 from dliom_tpu_torch.transform.rigid import (
     quat_conjugate,
@@ -210,29 +212,110 @@ def blocks_of(data: PoseGraphData):
     return tuple(bool(torch.any(v)) for v in (data.nn_valid, data.ff_valid, data.lm_valid))
 
 
+_C_FIELDS = ("c_submap", "c_node", "c_q", "c_t", "c_trans_weight", "c_rot_weight", "c_valid", "c_is_inter")
+_REPLICATED = ("submap_q", "submap_t", "node_q", "node_t")  # what a shard's SPA rows read besides its own
+
+
+def shard_constraints(data: PoseGraphData, mesh: Mesh) -> list:
+    """The SPA constraint rows split over the mesh's shards: per shard, the
+    `c_*` fields of its contiguous piece on its device (a dict), the count
+    padded to a multiple of D with invalid rows at the end."""
+    c = data.c_valid.shape[0]
+    pad = -c % mesh.size
+    fields = {f: getattr(data, f) for f in _C_FIELDS}
+    if pad:
+        fill = make_pose_graph_data(1, 1, pad, 1, 1, 1, 1, device=data.c_valid.device)
+        fields = {f: torch.cat([x, getattr(fill, f)]) for f, x in fields.items()}
+    names = list(fields)
+    return [dict(zip(names, piece)) for piece in shard_over_mesh(tuple(fields.values()), mesh)]
+
+
 def solve(data: PoseGraphData, *, iterations: int = 10, cg_iterations: int = 64,
           fix_first_submap: bool = True, ff_huber_scale: float = 0.0,
-          inter_huber_scale: float = 0.0, blocks=None) -> PoseGraphData:
+          inter_huber_scale: float = 0.0, blocks=None, mesh: Mesh | None = None) -> PoseGraphData:
     """Gauss-Newton with matrix-free PCG on the normal equations
     (`iterations` outer steps of `cg_iterations` CG steps each, each one
     `gn_step`). `blocks` as `blocks_of` gives them (read from `data` when
-    None)."""
+    None). `mesh`: the constraint rows split over its shards once
+    (`shard_constraints`), each GN step as `gn_step(mesh=)` describes;
+    `data` lives on the mesh's first device, as does the result."""
     if blocks is None:
         blocks = blocks_of(data)
+    shards = None if mesh is None else shard_constraints(data, mesh)
     for _ in range(iterations):
-        data = gn_step(data, cg_iterations=cg_iterations, fix_first_submap=fix_first_submap,
-                       ff_huber_scale=ff_huber_scale, inter_huber_scale=inter_huber_scale,
-                       blocks=blocks)
+        data = _gn_step(data, cg_iterations=cg_iterations, fix_first_submap=fix_first_submap,
+                        ff_huber_scale=ff_huber_scale, inter_huber_scale=inter_huber_scale,
+                        blocks=blocks, mesh=mesh, shards=shards)
     return data
 
 
 def gn_step(d: PoseGraphData, *, cg_iterations: int = 64, fix_first_submap: bool = True,
             ff_huber_scale: float = 0.0, inter_huber_scale: float = 0.0,
-            blocks=(True, True, True)) -> PoseGraphData:
+            blocks=(True, True, True), mesh: Mesh | None = None) -> PoseGraphData:
     """One Gauss-Newton step of `solve`: the new submap, node and landmark
     poses. It reads nothing on the host, so a CUDA graph captures it
     (`backend/pose_graph.py` replays one step `iterations` times); the rows
-    of the blocks `blocks` switches off must all be invalid."""
+    of the blocks `blocks` switches off must all be invalid.
+
+    `mesh`: the SPA constraint rows split over its shards (the JAX
+    package's sharded constraint arrays, dliom_tpu/backend/optimization.py
+    :275-300). Each shard builds its rows' residuals and Jacobian blocks on
+    its device from replicated poses; the gradient, the Jacobi diagonal and
+    every CG step's J^T J p are per-shard partial sums, each copied to the
+    first device and added in shard order (`common/mesh.py::reduce_add`),
+    and each CG direction goes back out to the shards. The node-node,
+    fixed-frame and landmark blocks and the CG vectors stay on the first
+    device. Without a mesh the same code runs as one shard."""
+    shards = None if mesh is None else shard_constraints(d, mesh)
+    return _gn_step(d, cg_iterations=cg_iterations, fix_first_submap=fix_first_submap,
+                    ff_huber_scale=ff_huber_scale, inter_huber_scale=inter_huber_scale, blocks=blocks,
+                    mesh=mesh, shards=shards)
+
+
+class _SpaRows:
+    """One shard's SPA rows at the current poses: residuals r (C, 6) and
+    the two Jacobian block columns j_s, j_n (C, 6, 6), with the segment
+    plans of their submap and node ids. Every row touches one submap and
+    one node; with per-constraint tangent copies, row k of every block is
+    one backward pass of the k-th residuals' sum."""
+
+    def __init__(self, d: PoseGraphData, submap_mask, node_mask, inter_huber_scale: float):
+        s, n = d.submap_q.shape[0], d.node_q.shape[0]
+        num_c = d.c_valid.shape[0]
+        dev = d.c_valid.device
+        self.cs, self.cn = d.c_submap.long(), d.c_node.long()
+        self.by_submap, self.by_node = segment_plan(self.cs, s), segment_plan(self.cn, n)
+        ds_rows = torch.zeros(num_c, 6, device=dev).requires_grad_()
+        dn_rows = torch.zeros(num_c, 6, device=dev).requires_grad_()
+        with torch.enable_grad():
+            r_spa = _spa_residuals(d, ds_rows * submap_mask[self.cs], dn_rows * node_mask[self.cn],
+                                   inter_huber_scale)
+            rows = [torch.autograd.grad(r_spa[:, k].sum(), (ds_rows, dn_rows), retain_graph=k < 5)
+                    for k in range(6)]
+        self.r = r_spa.detach()
+        self.j_s = torch.stack([g[0] for g in rows], 1)
+        self.j_n = torch.stack([g[1] for g in rows], 1)
+
+    def jt(self, u):
+        """J^T u of the rows for row values u (C, 6): (submap, node) sums."""
+        return (segment_sum(torch.einsum("cij,ci->cj", self.j_s, u), self.by_submap),
+                segment_sum(torch.einsum("cij,ci->cj", self.j_n, u), self.by_node))
+
+    def jtj(self, v_s, v_n):
+        """J^T J v for the submap and node parts of v."""
+        return self.jt(torch.einsum("cij,cj->ci", self.j_s, v_s[self.cs])
+                       + torch.einsum("cij,cj->ci", self.j_n, v_n[self.cn]))
+
+    def diag(self):
+        """The rows' share of diag(J^T J): column sums of squares."""
+        return (segment_sum((self.j_s ** 2).sum(1), self.by_submap),
+                segment_sum((self.j_n ** 2).sum(1), self.by_node))
+
+
+def _gn_step(d: PoseGraphData, *, cg_iterations: int, fix_first_submap: bool, ff_huber_scale: float,
+             inter_huber_scale: float, blocks, mesh: Mesh | None, shards) -> PoseGraphData:
+    """`gn_step`, the constraint rows given already split (`shards`, with
+    `mesh`) or not (both None)."""
     s = d.submap_q.shape[0]
     n = d.node_q.shape[0]
     dev = d.submap_q.device
@@ -251,34 +334,21 @@ def gn_step(d: PoseGraphData, *, cg_iterations: int = 64, fix_first_submap: bool
     def dot(a, b):
         return sum(torch.sum(ai * bi) for ai, bi in zip(a, b))
 
-    num_c = d.c_valid.shape[0]
-    cs, cn = d.c_submap.long(), d.c_node.long()
-    by_submap, by_node = segment_plan(cs, s), segment_plan(cn, n)
-    # SPA rows: each touches one submap and one node, so J is two (C, 6, 6)
-    # block columns. With per-constraint tangent copies, row k of every
-    # block is one backward pass of the k-th residuals' sum.
-    ds_rows = zeros(num_c, 6).requires_grad_()
-    dn_rows = zeros(num_c, 6).requires_grad_()
-    with torch.enable_grad():
-        r_spa = _spa_residuals(d, ds_rows * submap_mask[cs], dn_rows * node_mask[cn],
-                               inter_huber_scale)
-        rows = [torch.autograd.grad(r_spa[:, k].sum(), (ds_rows, dn_rows), retain_graph=k < 5)
-                for k in range(6)]
-    r_spa = r_spa.detach()
-    j_s = torch.stack([g[0] for g in rows], 1)
-    j_n = torch.stack([g[1] for g in rows], 1)
+    if mesh is None:  # one shard: every row, on d's device
+        mesh, shards = Mesh((dev,)), [{f: getattr(d, f) for f in _C_FIELDS}]
+    # the poses and masks a shard's rows read, copied once per device
+    reps = _mesh.to_each(({f: getattr(d, f) for f in _REPLICATED}, submap_mask, node_mask), mesh)
+    parts = [_SpaRows(d._replace(**poses, **rows), sm, nm, inter_huber_scale)
+             for (poses, sm, nm), rows in zip(reps, shards)]
 
-    def spa_jt(u):
-        """J^T u of the SPA rows for row values u (C, 6)."""
-        return (segment_sum(torch.einsum("cij,ci->cj", j_s, u), by_submap),
-                segment_sum(torch.einsum("cij,ci->cj", j_n, u), by_node),
-                zeros(extra_dim))
+    def reduce(partials):
+        return _mesh.reduce_add(partials, mesh)
 
     def hv(v):
-        u = torch.einsum("cij,cj->ci", j_s, v[0][cs]) + torch.einsum("cij,cj->ci", j_n, v[1][cn])
-        return spa_jt(u)
+        out = _mesh.to_each((v[0], v[1]), mesh)
+        return reduce([p.jtj(vs, vn) for p, (vs, vn) in zip(parts, out)]) + (zeros(extra_dim),)
 
-    grad = spa_jt(r_spa)
+    grad = reduce([p.jt(p.r) for p in parts]) + (zeros(extra_dim),)
     if any(blocks):
         # the other blocks matrix-free: J^T u is the vjp of their
         # residuals, and u -> J^T u is linear, so its vjp applied to v is
@@ -297,8 +367,7 @@ def gn_step(d: PoseGraphData, *, cg_iterations: int = 64, fix_first_submap: bool
     # Exact Jacobi preconditioner diag(J^T J): the SPA blocks' column sums
     # of squares; the node-node, fixed-frame and landmark rows add
     # closed-form weights^2.
-    diag_s = segment_sum((j_s ** 2).sum(1), by_submap)
-    diag_n = segment_sum((j_n ** 2).sum(1), by_node)
+    diag_s, diag_n = reduce([p.diag() for p in parts])
     tw2 = torch.where(d.nn_valid, d.nn_trans_weight ** 2, 0.0)
     rw2 = torch.where(d.nn_valid, d.nn_rot_weight ** 2, 0.0)
     for idx in (d.nn_first, d.nn_second):

@@ -22,8 +22,19 @@ departs from the JAX package on purpose in three places:
   * `_opt_pending` is checked and set under a lock;
   * a submap's decompression is guarded in flight: a second worker waits
     for the first one's grids instead of decompressing again.
-The JAX package's mesh sharding of the search and the solve is not ported
-(one card).
+
+Mesh (`mesh=`, a `common/mesh.py::Mesh`; dliom_tpu/backend/pose_graph.py
+:141-147, :617-640). A search chunk's node batch is split into contiguous
+pieces over the mesh's shards (a chunk smaller than D leaves shards idle;
+no node is padded in): each shard runs its own search program on its
+device, against the target submap's cached grids and pyramid copied once
+into that device's static grids, and the packed results are gathered on
+`device` before the chunk's one host read. Every shard's program is
+queued before any result is gathered. The SPA runs `optimization.solve`
+with its constraint rows split over the shards (eagerly: its host-driven
+CG loop is not captured). Decompression, projection and proposals stay
+on `device`. A pool task sets a stream of its worker thread on every
+device of the mesh and drains them all before it ends.
 
 Compiled programs. The JAX package jits the search's programs and the SPA
 solve; here each is a `common/graph.py::StepGraph` (on the card one eager
@@ -54,6 +65,7 @@ tensors, they are what the programs are held to.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -84,6 +96,7 @@ from dliom_tpu_torch.common.config import (
 )
 from dliom_tpu_torch.common.device import get_device
 from dliom_tpu_torch.common.graph import SharedPool, StepGraph, sum_counts
+from dliom_tpu_torch.common.mesh import Mesh, indexed, split_sizes
 from dliom_tpu_torch.mapping.grid import GridSpec
 from dliom_tpu_torch.mapping.submap import grid_specs
 from dliom_tpu_torch.ops.rotational_histogram import np_rotate_histogram
@@ -163,11 +176,12 @@ def _grid_leaves(grids):
 
 
 class _Programs:
-    """One thread's compiled search programs of a pose graph: the graphs by
-    key, the memory pool they share, and the static grids the searches and
-    the projection read."""
+    """One thread's compiled search programs of a pose graph on one device:
+    the graphs by key, the memory pool they share, and the static grids the
+    searches and the projection read."""
 
-    def __init__(self):
+    def __init__(self, device: torch.device):
+        self.device = device
         self.graphs: Dict[tuple, StepGraph] = {}
         self.pool = SharedPool()
         self.grids = None  # (g_hi, g_lo, levels)
@@ -182,10 +196,11 @@ class _Programs:
 
     def load_grids(self, hit) -> None:
         """Copy a submap's cached (g_hi, g_lo, pyramid) into the static
-        grids, unless they hold them already."""
+        grids on this set's device, unless they hold them already."""
         g_hi, g_lo, pyr = hit
         if self.grids is None:
-            self.grids = (g_hi.clone(), g_lo.clone(), tuple(x.clone() for x in pyr.levels))
+            self.grids = (g_hi.to(self.device, copy=True), g_lo.to(self.device, copy=True),
+                          tuple(x.to(self.device, copy=True) for x in pyr.levels))
         elif self.loaded is not hit:
             for s, x in zip(_grid_leaves(self.grids), (g_hi, g_lo, *pyr.levels)):
                 s.copy_(x)
@@ -313,24 +328,30 @@ def spa_body(op: OptimizationProblemConfig, blocks):
     return body
 
 
-def spa_solve_eager(op: OptimizationProblemConfig, problem: opt.PoseGraphData, iterations: int, blocks):
+def spa_solve_eager(op: OptimizationProblemConfig, problem: opt.PoseGraphData, iterations: int, blocks,
+                    mesh: Optional[Mesh] = None):
     """`optimization.solve` with the pose graph's settings: what the SPA
-    graph's replays are held to."""
-    return opt.solve(problem, iterations=iterations, **_spa_settings(op, blocks))
+    graph's replays are held to, and the solve over a mesh."""
+    return opt.solve(problem, iterations=iterations, mesh=mesh, **_spa_settings(op, blocks))
 
 
 class PoseGraph:
     """Host orchestrator (PoseGraph3D API surface)."""
 
     def __init__(self, cfg: PoseGraphConfig, tb_cfg: TrajectoryBuilderConfig, pool=None,
-                 metrics=None, device=None):
+                 metrics=None, device=None, mesh: Optional[Mesh] = None):
         """`pool`: optional native TaskThreadPool; loop searches and the
         periodic SPA then run as background tasks. `device`: where the
         search and solve run: the CUDA card by default (raises where there is
-        none), "cpu" on request."""
+        none), "cpu" on request. `mesh`: the search's node batches and the
+        SPA's constraint rows split over its devices (module docstring),
+        which are of `device`'s type."""
         self.cfg = cfg
         self.tb_cfg = tb_cfg
         self.device = get_device("cuda" if device is None else device)
+        if mesh is not None and any(d.type != self.device.type for d in mesh.devices):
+            raise ValueError(f"{mesh} is not of the pose graph's device type {self.device.type}")
+        self.mesh = mesh
         self.nodes: List[NodeRecord] = []
         self.submaps: List[SubmapRecord] = []
         self.constraints: List[Constraint] = []
@@ -357,9 +378,10 @@ class PoseGraph:
         self._phase_lock = threading.Lock()
         self._grid_cache: "collections.OrderedDict[int, tuple]" = collections.OrderedDict()
         self._grid_inflight: Dict[int, threading.Event] = {}
-        self._streams: Dict[int, torch.cuda.Stream] = {}  # thread id -> the worker's stream
+        # (thread id, device) -> the worker's stream on that device
+        self._streams: Dict[Tuple[int, torch.device], torch.cuda.Stream] = {}
         self._last_landmark_positions = None
-        self._programs_by_thread: Dict[int, _Programs] = {}
+        self._programs_by_thread: Dict[Tuple[int, torch.device], _Programs] = {}
         self._spa_graphs: Dict[tuple, Tuple[threading.Lock, StepGraph]] = {}
         self._programs_lock = threading.Lock()
 
@@ -379,10 +401,15 @@ class PoseGraph:
             for t in tensors:
                 t.record_stream(stream)
 
+    def _devices(self) -> Tuple[torch.device, ...]:
+        """`device`, then the mesh's other devices."""
+        return tuple(dict.fromkeys((indexed(self.device),) + (self.mesh.devices if self.mesh else ())))
+
     def _device_task(self, fn):
         """Wrap a pool task: on CUDA it runs on its worker thread's own
-        stream, after everything the submitting stream has queued so far,
-        and its stream is drained before it returns."""
+        stream of each device (`device` and the mesh's), after everything
+        the submitting stream has queued so far, and its streams are
+        drained before it returns."""
         if not self._on_cuda():
             return fn
         dev = self.device
@@ -392,16 +419,23 @@ class PoseGraph:
         def run():
             # keyed by thread id: a native worker's threading.local is new
             # for every task
+            tid = threading.get_ident()
             with self._phase_lock:
-                stream = self._streams.get(threading.get_ident())
-                if stream is None:
-                    stream = self._streams[threading.get_ident()] = torch.cuda.Stream(dev)
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-                stream.wait_event(ready)
+                for d in self._devices():
+                    if (tid, d) not in self._streams:
+                        self._streams[(tid, d)] = torch.cuda.Stream(d)
+                streams = [self._streams[(tid, d)] for d in self._devices()]
+            # a stream context makes its stream's device current: `device`'s
+            # goes last
+            with torch.cuda.device(dev), contextlib.ExitStack() as stack:
+                for stream in reversed(streams):
+                    stack.enter_context(torch.cuda.stream(stream))
+                streams[0].wait_event(ready)
                 try:
                     fn()
                 finally:
-                    stream.synchronize()
+                    for stream in streams:
+                        stream.synchronize()
 
         return run
 
@@ -661,13 +695,15 @@ class PoseGraph:
 
     # ----- compiled programs -----
 
-    def _programs(self) -> _Programs:
-        """The calling thread's search programs (keyed by thread id: a native
-        worker's threading.local is new for every task)."""
+    def _programs(self, device: Optional[torch.device] = None) -> _Programs:
+        """The calling thread's search programs on `device` (the pose
+        graph's by default), keyed by thread id (a native worker's
+        threading.local is new for every task) and device."""
+        key = (threading.get_ident(), indexed(self.device if device is None else device))
         with self._programs_lock:
-            prog = self._programs_by_thread.get(threading.get_ident())
+            prog = self._programs_by_thread.get(key)
             if prog is None:
-                prog = self._programs_by_thread[threading.get_ident()] = _Programs()
+                prog = self._programs_by_thread[key] = _Programs(key[1])
         return prog
 
     def _decompress(self, sub: SubmapRecord):
@@ -683,16 +719,34 @@ class PoseGraph:
         return g_hi.clone(), g_lo.clone(), Pyramid(levels=tuple(x.clone() for x in levels))
 
     def _search(self, kind: str, hit, arrays) -> torch.Tensor:
-        """One chunk's search program (`search_body`) against the cached
-        grids `hit` of its target submap, from the chunk's host arrays; the
-        packed (B, 9) result, a new tensor."""
-        prog = self._programs()
+        """One chunk's search (`search_body`) against the cached grids `hit`
+        of its target submap, from the chunk's host arrays (the last one,
+        the submap histogram, is the chunk's; the others carry the node
+        axis); the packed (B, 9) result, a new tensor on `device`. The
+        nodes are split over the mesh's shards (without a mesh, one shard
+        on `device`), each shard's program queued in turn, then the pieces
+        gathered."""
+        mesh = self.mesh or Mesh((self.device,))
+        nodes, chunk_wide = arrays[:-1], arrays[-1]
+        outs, at = [], 0
+        for dev, size in zip(mesh.devices, split_sizes(len(nodes[0]), mesh)):
+            if size:
+                piece = [a[at:at + size] for a in nodes] + [chunk_wide]
+                outs.append(self._search_on(self._programs(dev), kind, hit, piece))
+                at += size
+        outs = [o.to(self.device) for o in outs]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def _search_on(self, prog: _Programs, kind: str, hit, arrays) -> torch.Tensor:
+        """The search program of `prog` (one thread's programs on one
+        device) for the arrays' shapes, its static grids loaded with `hit`;
+        the packed result, a new tensor on that device."""
         g = prog.graph((kind,) + tuple(a.shape for a in arrays), kind,
                        lambda: search_body(kind, self.cfg.constraint_builder, self._hi_spec, self._lo_spec),
                        adopt=_grid_leaves)
         prog.load_grids(hit)
         if g.state is None:
-            g.bind(prog.grids, [self._stage_array(a) for a in arrays])
+            g.bind(prog.grids, [self._stage_array(a, prog.device) for a in arrays])
         g.stage_input(arrays)  # one host-to-device copy
         g.step()
         return g.result.clone()
@@ -725,8 +779,8 @@ class PoseGraph:
         g.step()
         return self._host(g.result)
 
-    def _stage_array(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _stage_array(self, a, device: Optional[torch.device] = None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device if device is None else device)
 
     def programs(self) -> Dict[str, List[Tuple[tuple, StepGraph]]]:
         """Every compiled program this pose graph made, by name: (key,
@@ -1130,7 +1184,12 @@ class PoseGraph:
         """The SPA solve of the host problem: its submap, node and landmark
         poses, flat on the host (one read). The GN-step graph of this
         problem's shapes and blocks, its poses loaded from the staged
-        problem, replayed `iterations` times under the graph's lock."""
+        problem, replayed `iterations` times under the graph's lock. With a
+        mesh, `optimization.solve` over it, eagerly."""
+        if self.mesh is not None:
+            data = opt.PoseGraphData(**{k: self._stage_array(v, self.mesh.first) for k, v in problem.items()})
+            return self._read_poses(spa_solve_eager(self.cfg.optimization_problem, data, iterations, blocks,
+                                                    self.mesh))
         key = ("spa", blocks) + tuple(v.shape for v in problem.values())
         with self._programs_lock:
             if key not in self._spa_graphs:

@@ -365,12 +365,15 @@ class StepGraph:
         if self.device.type != "cuda":
             self._run()
             return
+        # the warm-up's launches and the replay go to the graph's own card,
+        # whichever card is current (a mesh's shards step from one thread)
         if self.graph is not None:
-            self.graph.replay()
+            with torch.cuda.device(self.device):
+                self.graph.replay()
             self.replays += 1
             add_launches(self.launches)
             return
-        with cusolver():
+        with cusolver(), torch.cuda.device(self.device):
             self._run()
             self.warmups += 1
             self._capture()

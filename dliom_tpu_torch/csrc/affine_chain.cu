@@ -213,12 +213,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 extern "C" int dliom_affine_chain(const void* f, const void* q, void* a_out, void* p_out,
                                   int batch, int m, void* stream) {
   if (batch <= 0) return 0;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // The shared-memory attribute belongs to the current device's context:
+  // set it once on every device the kernel launches on.
+  constexpr int kMaxDevices = 64;
+  static bool configured[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device < 0 || device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!configured[device]) {
+    err = cudaFuncSetAttribute(
         affine_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
+    configured[device] = true;
   }
   affine_chain_kernel<<<batch, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(f), static_cast<const float*>(q),

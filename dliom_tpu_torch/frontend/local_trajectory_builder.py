@@ -113,24 +113,9 @@ def step(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilderConfig, fu
     with record_function("frontend.filter"):
         clouds = filter_scan(state.pose, scan, cfg)
     submap_pose, bank_slot, initial_in_submap = match_target(state.submaps, clouds.prediction)
-    sm_cfg = cfg.submaps
     if cfg.use_online_correlative_scan_matching:
-        # exhaustive local pre-search seeding the LM matcher (:514-520)
-        rtc = cfg.real_time_correlative_scan_matcher
-        hi_spec = grid_specs(sm_cfg)[0]
         with record_function("frontend.correlative"):
-            initial_in_submap = real_time_correlative.match(
-                initial_in_submap, clouds.high.points, clouds.high.mask,
-                state.submaps.high_brick if sm_cfg.use_brick_grid else state.submaps.high_values,
-                brick_spec(sm_cfg) if sm_cfg.use_brick_grid else hi_spec,
-                linear_search_window=rtc.linear_search_window,
-                angular_search_window=rtc.angular_search_window,
-                translation_delta_cost_weight=rtc.translation_delta_cost_weight,
-                rotation_delta_cost_weight=rtc.rotation_delta_cost_weight,
-                max_scan_range=cfg.max_range,
-                max_angular_steps=rtc.max_angular_steps,
-                base=bank_slot if sm_cfg.use_brick_grid else bank_slot * hi_spec.num_cells,
-            ).pose
+            initial_in_submap = correlative_match(state.submaps, clouds, bank_slot, initial_in_submap, cfg)
     with record_function("frontend.match"):
         result = match_scan(state.submaps, clouds, bank_slot, initial_in_submap, cfg)
     pose_estimate = submap_pose.compose(result.pose)
@@ -200,6 +185,29 @@ def match_target(submaps: ActiveSubmaps, prediction: Rigid3):
     mslot = matching_slot(submaps)
     submap_pose = slot_pose(submaps, mslot)
     return submap_pose, 2 * submaps.lane + mslot, submap_pose.inverse().compose(prediction)
+
+
+def correlative_match(submaps: ActiveSubmaps, clouds: ScanClouds, bank_slot, initial_in_submap: Rigid3,
+                      cfg: TrajectoryBuilderConfig) -> Rigid3:
+    """The exhaustive local pre-search seeding the LM matcher (:514-520):
+    the high cloud against the bank slot's high grid. For B lanes every
+    argument but the shared banks carries the lane axis, and each lane
+    scores the lattice against its own slot."""
+    sm_cfg = cfg.submaps
+    rtc = cfg.real_time_correlative_scan_matcher
+    hi_spec = grid_specs(sm_cfg)[0]
+    return real_time_correlative.match(
+        initial_in_submap, clouds.high.points, clouds.high.mask,
+        submaps.high_brick if sm_cfg.use_brick_grid else submaps.high_values,
+        brick_spec(sm_cfg) if sm_cfg.use_brick_grid else hi_spec,
+        linear_search_window=rtc.linear_search_window,
+        angular_search_window=rtc.angular_search_window,
+        translation_delta_cost_weight=rtc.translation_delta_cost_weight,
+        rotation_delta_cost_weight=rtc.rotation_delta_cost_weight,
+        max_scan_range=cfg.max_range,
+        max_angular_steps=rtc.max_angular_steps,
+        base=bank_slot if sm_cfg.use_brick_grid else bank_slot * hi_spec.num_cells,
+    ).pose
 
 
 def match_scan(submaps: ActiveSubmaps, clouds: ScanClouds, bank_slot, initial_in_submap: Rigid3,

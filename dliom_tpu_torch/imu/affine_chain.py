@@ -49,11 +49,12 @@ def affine_chain(f: torch.Tensor, q: torch.Tensor):
     a = torch.empty(fb.shape[0], 15, 15, dtype=torch.float32, device=f.device)
     p = torch.empty_like(a)
     lib = kernels.library()
-    stream = torch.cuda.current_stream(f.device).cuda_stream
-    err = lib.dliom_affine_chain(
-        fb.data_ptr(), qb.data_ptr(), a.data_ptr(), p.data_ptr(),
-        fb.shape[0], fb.shape[1], stream,
-    )
+    with torch.cuda.device(f.device):  # the launch goes to the inputs' card
+        stream = torch.cuda.current_stream(f.device).cuda_stream
+        err = lib.dliom_affine_chain(
+            fb.data_ptr(), qb.data_ptr(), a.data_ptr(), p.data_ptr(),
+            fb.shape[0], fb.shape[1], stream,
+        )
     kernels.check(err, "affine_chain")
     launches.count(__name__, "LAUNCHES")
     return (a, p) if batched else (a[0], p[0])

@@ -569,14 +569,18 @@ class MapBuilder:
 
     def __init__(self, config: EngineConfig, range_sensor_ids: Optional[List[str]] = None,
                  use_background_threads: bool = False, use_native_collator: bool = False,
-                 pipeline_depth: int = 0, create_default_trajectory: bool = True, device=None):
+                 pipeline_depth: int = 0, create_default_trajectory: bool = True, device=None,
+                 mesh=None):
         """`range_sensor_ids`: one per LiDAR (the first is the primary).
         `use_background_threads`: loop search and the periodic SPA run on a
         native task pool of map_builder.num_background_threads workers.
         `use_native_collator`: ingest merges through the native
         OrderedMultiQueue. `pipeline_depth=1` defers each scan's host read
         to the next scan. `device`: where the frontend and backend run; the
-        CUDA card by default (raises where there is none), "cpu" on request."""
+        CUDA card by default (raises where there is none), "cpu" on request.
+        `mesh`: a `common/mesh.py::Mesh` the pose graph splits its loop
+        search's node batches and its SPA's constraint rows over (as
+        dliom_tpu/map_builder.py:717-720); the frontend stays on `device`."""
         if not config.map_builder.use_trajectory_builder_3d:
             raise ValueError("only the 3D pipeline is built; set "
                              "map_builder.use_trajectory_builder_3d=True")
@@ -593,7 +597,7 @@ class MapBuilder:
             pool = TaskThreadPool(config.map_builder.num_background_threads)
         self._pool = pool
         self.pose_graph = PoseGraph(config.pose_graph, self.tb, pool=pool, metrics=self._metrics,
-                                    device=self.device)
+                                    device=self.device, mesh=mesh)
         self._default_sensor_ids = range_sensor_ids or [
             f"points{i}" for i in range(max(1, config.num_point_clouds))]
         self._use_native_collator = use_native_collator

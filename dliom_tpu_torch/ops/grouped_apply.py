@@ -183,12 +183,13 @@ def apply_grouped_rows(pool_flat, rows, starts, ends, cell_keys, *,
         _check_int32("apply_grouped_rows", name, t, n, pool_flat.device)
     hit_t, miss_t = update_tables(float(hit_odds), float(miss_odds), pool_flat.device)
     lib = kernels.library()
-    stream = torch.cuda.current_stream(pool_flat.device).cuda_stream
-    err = lib.dliom_grouped_apply(
-        pool_flat.data_ptr(), rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-        fresh.data_ptr(), cell_keys.data_ptr(), hit_t.data_ptr(), miss_t.data_ptr(),
-        num_steps, cells_per_group, stream,
-    )
+    with torch.cuda.device(pool_flat.device):  # the launch goes to the bank's card
+        stream = torch.cuda.current_stream(pool_flat.device).cuda_stream
+        err = lib.dliom_grouped_apply(
+            pool_flat.data_ptr(), rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+            fresh.data_ptr(), cell_keys.data_ptr(), hit_t.data_ptr(), miss_t.data_ptr(),
+            num_steps, cells_per_group, stream,
+        )
     kernels.check(err, "grouped_apply")
     launches.count(__name__, "LAUNCHES")
     return pool_flat
@@ -307,13 +308,14 @@ def apply_grouped_updates(pool_flat, sorted_keys, *, num_groups: int, cells_per_
     hit_t, miss_t = update_tables(float(hit_odds), float(miss_odds), pool_flat.device)
     lib = kernels.library()
     tiles = max(1, -(-sorted_keys.shape[0] // lib.dliom_dense_tile_keys()))
-    stream = torch.cuda.current_stream(pool_flat.device).cuda_stream
-    lookback = _lookback_scratch(pool_flat.device, stream, tiles)
-    dropped = torch.empty((), dtype=torch.int32, device=pool_flat.device)
-    err = lib.dliom_grouped_apply_dense(
-        pool_flat.data_ptr(), sorted_keys.data_ptr(), sorted_keys.shape[0], hit_t.data_ptr(),
-        miss_t.data_ptr(), lookback.data_ptr(), tiles, dropped.data_ptr(), num_groups, cb, stream,
-    )
+    with torch.cuda.device(pool_flat.device):  # the launch goes to the bank's card
+        stream = torch.cuda.current_stream(pool_flat.device).cuda_stream
+        lookback = _lookback_scratch(pool_flat.device, stream, tiles)
+        dropped = torch.empty((), dtype=torch.int32, device=pool_flat.device)
+        err = lib.dliom_grouped_apply_dense(
+            pool_flat.data_ptr(), sorted_keys.data_ptr(), sorted_keys.shape[0], hit_t.data_ptr(),
+            miss_t.data_ptr(), lookback.data_ptr(), tiles, dropped.data_ptr(), num_groups, cb, stream,
+        )
     kernels.check(err, "grouped_apply_dense")
     launches.count(__name__, "LAUNCHES", "DENSE_LAUNCHES")
     return pool_flat, dropped

@@ -113,33 +113,43 @@ def match(
 ) -> RealTimeMatchResult:
     """Exhaustive local search (Match :34-53 + ScoreCandidate :99-117).
     `values`/`base`: a dense flat bank and its slot offset, or a BrickBank
-    and its slot, as in the Ceres matcher."""
+    and its slot, as in the Ceres matcher. For B lanes the pose is (B, ·),
+    the cloud (B, N, ·) and `base` a (B,) tensor: each lane scores the
+    lattice against its own slot of the shared bank, and the result carries
+    the lane axis (the JAX package vmaps the single search)."""
     dev = points.device
     off_t, off_q, damp = _candidates(
         spec.resolution, linear_search_window, angular_search_window, max_scan_range,
         max_angular_steps, translation_delta_cost_weight, rotation_delta_cost_weight, dev)
-    n_valid = torch.clamp(torch.sum(mask.to(torch.float32)), min=1.0)
+    if points.dim() == 3:  # lanes: each lane's slot against its (C, N) lookups
+        base = torch.as_tensor(base, device=dev).reshape(-1, 1, 1)
+    n_valid = torch.clamp(torch.sum(mask.to(torch.float32), dim=-1), min=1.0)[..., None]
+    rot = initial_pose.rotation[..., None, :]
+    trans = initial_pose.translation[..., None, :]
 
     def candidates(dt, dq):
-        # candidate = initial * offset (:43-45)
-        return (quat_normalize(quat_multiply(initial_pose.rotation, dq)),
-                initial_pose.translation + quat_rotate(initial_pose.rotation, dt))
+        # candidate = initial * offset (:43-45); (…, C, ·)
+        return quat_normalize(quat_multiply(rot, dq)), trans + quat_rotate(rot, dt)
 
     def mean_probability(dt, dq):
         cand_q, cand_t = candidates(dt, dq)
-        world = quat_rotate(cand_q[:, None, :], points[None]) + cand_t[:, None, :]
+        world = quat_rotate(cand_q[..., :, None, :], points[..., None, :, :]) + cand_t[..., :, None, :]
         cells = cell_index(world, spec.resolution)
+        m = mask[..., None, :]
         if isinstance(values, BrickBank):
-            v = torch.where(mask, lookup_value_brick(values, cells, spec, base), 0)
+            v = torch.where(m, lookup_value_brick(values, cells, spec, base), 0)
         else:
             lin, ok = linear_index(cells, spec)
-            v = torch.where(ok & mask, values[(base + lin).long()].to(torch.int32), 0)
+            v = torch.where(ok & m, values[(base + lin).long()].to(torch.int32), 0)
         prob = pv.value_to_probability(v)
-        return torch.sum(torch.where(mask, prob, 0.0), dim=-1) / n_valid
+        return torch.sum(torch.where(m, prob, 0.0), dim=-1) / n_valid
 
-    chunk = max(1, _PAIRS_PER_CHUNK // max(1, points.shape[0]))
+    # the chunk follows from the shapes alone: no host read, so a CUDA
+    # graph captures the batched step's search
+    chunk = max(1, _PAIRS_PER_CHUNK // max(1, points[..., 0].numel()))
     scores = torch.cat([mean_probability(off_t[i:i + chunk], off_q[i:i + chunk])
-                        for i in range(0, off_t.shape[0], chunk)]) * damp
-    best = torch.argmax(scores).reshape(1)
+                        for i in range(0, off_t.shape[0], chunk)], dim=-1) * damp
+    best = torch.argmax(scores, dim=-1, keepdim=True)
     best_q, best_t = candidates(off_t[best], off_q[best])
-    return RealTimeMatchResult(pose=Rigid3(best_q[0], best_t[0]), score=scores[best][0], index=best[0])
+    return RealTimeMatchResult(pose=Rigid3(best_q[..., 0, :], best_t[..., 0, :]),
+                               score=torch.take_along_dim(scores, best, dim=-1)[..., 0], index=best[..., 0])

@@ -24,10 +24,24 @@ estimate, the motion filter and the insertion's bookkeeping) run under
 filter's sort is one sort of B rows). No stage loops over lanes on the
 host, so the launches of a step do not grow with B.
 
+The online correlative pre-search, where the config enables it, scores
+every lane's lattice against its own front-submap slot in one call
+(`local_trajectory_builder.correlative_match`), its candidate chunks sized
+from the shapes alone, so the batched step still captures.
+
 K1's capacities (`apply_groups`) are per call, so at B lanes one call
 holds every lane's touched groups: a run without drops scales them by B.
-The online correlative pre-search and the mesh sharding (:311-411) are not
-ported: the port runs on one card.
+
+Sharding over a mesh (:311-411, `common/mesh.py`): each of the D shards
+owns batch/D sequences with their own flat banks on its own device, and
+their lanes restart at 0 on every shard (`make_sharded_lio_state`), as in
+the JAX package. `sharded_lio_step` holds one compiled batched step per
+shard; a call queues every shard's input copy and step from the one
+calling thread (forward-mode AD is process-global) with no host wait in
+between, so the devices run at once. The hot loop has no cross-device
+traffic. State and results are lists of per-shard trees; `gather` reads
+them as the JAX package's global arrays (a dense grouped bank keeps one
+padding group per shard).
 """
 
 from __future__ import annotations
@@ -40,9 +54,11 @@ from torch.func import vmap
 from torch.profiler import record_function
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from dliom_tpu_torch.common import mesh as _mesh
 from dliom_tpu_torch.common.config import TrajectoryBuilderConfig
 from dliom_tpu_torch.common.device import constant, get_device
-from dliom_tpu_torch.common.graph import StepGraph
+from dliom_tpu_torch.common.graph import StepGraph, sum_counts
+from dliom_tpu_torch.common.mesh import Mesh, gather, make_mesh  # noqa: F401  (the JAX package's names)
 from dliom_tpu_torch.frontend.lio import (
     LioResult,
     LioScanInput,
@@ -58,6 +74,7 @@ from dliom_tpu_torch.frontend.local_trajectory_builder import (
     FrontendState,
     ScanInput,
     ScanResult,
+    correlative_match,
     filter_scan,
     finish_step,
     histogram_points,
@@ -246,8 +263,6 @@ def write_flat_insertion(cfg: TrajectoryBuilderConfig, sm: ActiveSubmaps, ib: In
 def frontend_lanes(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilderConfig, fuse_fn=None):
     """The frontend `step` over B lanes with its grid writes deferred:
     the insertion comes back in `ScanResult.insertion_batch` (B, 2, ·)."""
-    if cfg.use_online_correlative_scan_matching:
-        raise ValueError("the batched run has no online correlative pre-search")
     shared = state.submaps
     lanes = state._replace(submaps=_over_lanes(
         functools.partial(apply_pending_spawn, cfg=cfg.submaps, defer_bank_clears=True),
@@ -256,6 +271,9 @@ def frontend_lanes(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilder
         clouds = _over_lanes(functools.partial(filter_scan, cfg=cfg), lanes.pose, scan)
     submap_pose, bank_slot, initial_in_submap = _over_lanes(match_target, lanes.submaps,
                                                             clouds.prediction)
+    if cfg.use_online_correlative_scan_matching:
+        with record_function("frontend.correlative"):
+            initial_in_submap = correlative_match(shared, clouds, bank_slot, initial_in_submap, cfg)
     with record_function("frontend.match"):
         result = match_scan(shared, clouds, bank_slot, initial_in_submap, cfg)
     pose_estimate = submap_pose.compose(result.pose)
@@ -353,3 +371,81 @@ def make_batched_lio_chunk(cfg: TrajectoryBuilderConfig, batch: int, chunk: int)
     scans' leaves carry a leading (chunk, B, ...) axis, and so do the
     results (the JAX package's `lax.scan` in one dispatch)."""
     return StepGraph(chunk_body(batched_lio_body(cfg, batch), chunk), adopt=bank_leaves)
+
+
+# ----- sharding over a mesh (dliom_tpu/parallel/batch.py:311-411) -----
+
+
+def _local_batch(batch: int, mesh: Mesh) -> int:
+    if batch % mesh.size:
+        raise ValueError(f"a batch of {batch} sequences does not divide over the {mesh.size} shards "
+                         f"of mesh axis {mesh.axis!r}")
+    return batch // mesh.size
+
+
+def _rebase_lanes(state):
+    """A shard of a batched state with its lanes numbered from 0 (the
+    shard's banks hold only its own lanes' slots)."""
+    fe = state.frontend if isinstance(state, LioState) else state
+    sm = fe.submaps
+    fe = fe._replace(submaps=sm._replace(lane=torch.arange(sm.lane.shape[0], dtype=torch.int32,
+                                                             device=sm.lane.device)))
+    return state._replace(frontend=fe) if isinstance(state, LioState) else fe
+
+
+def shard_over_mesh(tree, mesh: Mesh) -> list:
+    """`common/mesh.py::shard_over_mesh`: per-shard copies of a batched
+    tree's leading (lane) axis. A batched state's flat banks split with its
+    lanes (2 slots each), and each shard's lanes restart at 0. A dense bank
+    on the grouped path ends in one padding group and does not split so:
+    make such shards with `make_sharded_lio_state`."""
+    shards = _mesh.shard_over_mesh(tree, mesh)
+    if isinstance(tree, (LioState, FrontendState)):
+        shards = [_rebase_lanes(s) for s in shards]
+    return shards
+
+
+def make_sharded_lio_state(cfg: TrajectoryBuilderConfig, batch: int, mesh: Mesh) -> list:
+    """Per shard, `make_batched_lio_state` of batch/D lanes on the shard's
+    device: each shard owns its sequences with their own flat banks, lanes
+    from 0. Gathered, it equals the JAX package's sharded state."""
+    local = _local_batch(batch, mesh)
+    return [make_batched_lio_state(cfg, local, dev) for dev in mesh.devices]
+
+
+class ShardedStep:
+    """One step per shard of a mesh, called as `(states, inputs) ->
+    (states, results)` over lists of per-shard trees; an input that is one
+    batched tree (not a list) is split over the mesh first. Each call runs the shards in
+    shard order from the calling thread and waits for none of them."""
+
+    def __init__(self, steps, mesh: Mesh):
+        self.steps = list(steps)
+        self.mesh = mesh
+
+    def __call__(self, states, inputs):
+        if not isinstance(inputs, list):
+            inputs = _mesh.shard_over_mesh(inputs, self.mesh)
+        if len(states) != self.mesh.size or len(inputs) != self.mesh.size:
+            raise ValueError(f"{len(states)} states and {len(inputs)} inputs for {self.mesh.size} shards")
+        outs = [step(st, inp) for step, st, inp in zip(self.steps, states, inputs)]
+        return [o[0] for o in outs], [o[1] for o in outs]
+
+    def counts(self):
+        """The shards' StepGraph counts, summed (`common/graph.py`)."""
+        return sum_counts(s for s in self.steps if isinstance(s, StepGraph))
+
+
+def sharded_lio_step(cfg: TrajectoryBuilderConfig, batch: int, mesh: Mesh) -> ShardedStep:
+    """The compiled batched LIO step of batch/D lanes on every shard
+    (`make_batched_lio_step`: one CUDA graph per shard on the card), the
+    banks updated in place on their shard's device. State and results of a
+    shard are its graph's buffers, rewritten by its next step."""
+    local = _local_batch(batch, mesh)
+    return ShardedStep((make_batched_lio_step(cfg, local) for _ in mesh.devices), mesh)
+
+
+def sharded_step(cfg: TrajectoryBuilderConfig, mesh: Mesh) -> ShardedStep:
+    """The frontend's `batched_step` on every shard of the mesh, over
+    per-shard states (`shard_over_mesh(make_batched_state(...), mesh)`)."""
+    return ShardedStep((batched_step(cfg) for _ in mesh.devices), mesh)

@@ -887,3 +887,110 @@ def test_capture_beside_a_dead_graph_in_garbage(cuda_device):
     assert torch.equal(out[0], torch.full((16,), 7.0, device=cuda_device))
     gc.collect()
     assert gone() is None
+
+
+# ----- the mesh (common/mesh.py): the kernels and graphs off cuda:0 -----
+
+
+@pytest.fixture
+def second_card():
+    """cuda:1, with cuda:0 left current: a launch that follows the current
+    device instead of its tensors' would go to the wrong card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+def test_kernels_on_a_second_card_match_plain(second_card):
+    """K1 (rows and dense entries) and K2 on cuda:1 against their plain
+    versions, while cuda:0 is current."""
+    bank, rows, starts, ends, keys, fresh = (
+        x.to(second_card) for x in _grouped_case(np.random.default_rng(1), 64, 4096, 48))
+    kw = dict(cells_per_group=4096, hit_odds=0.55 / 0.45, miss_odds=0.49 / 0.51, fresh=fresh)
+    k = K1.apply_grouped_rows(bank.clone(), rows, starts, ends, keys, **kw)
+    p = K1.apply_grouped_rows_plain(bank.clone(), rows, starts, ends, keys, **kw)
+    dense_bank = torch.zeros(4 * 16384 + 16384, dtype=torch.int16, device=second_card)
+    dkeys = torch.sort(torch.from_numpy(
+        (np.random.default_rng(2).integers(0, 4 * 16384, 5000) << 1).astype(np.int32))).values.to(second_card)
+    dkw = dict(num_groups=3, cells_per_group=16384, hit_odds=0.55 / 0.45, miss_odds=0.49 / 0.51, dummy_group=4)
+    dk, ddrop = K1.apply_grouped_updates(dense_bank.clone(), dkeys, **dkw)
+    dp, pdrop = K1.apply_grouped_updates_plain(dense_bank.clone(), dkeys, **dkw)
+    rng = np.random.default_rng(3)
+    f = torch.from_numpy(np.eye(15, dtype=np.float32) + rng.normal(0, 0.01, (2, 48, 15, 15)).astype(np.float32))
+    q = torch.from_numpy(rng.normal(0, 1e-3, (2, 48, 15, 15)).astype(np.float32))
+    a, pp = K2.affine_chain(f.to(second_card), q.to(second_card))
+    a0, p0 = K2.affine_chain_plain(f.to(second_card), q.to(second_card))
+    torch.cuda.synchronize(second_card)
+    assert k.device == dk.device == a.device == second_card
+    assert torch.equal(k, p) and not torch.equal(k, bank)
+    assert torch.equal(dk, dp) and int(ddrop) == int(pdrop) == 1
+    torch.testing.assert_close(a, a0, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(pp, p0, rtol=1e-5, atol=1e-6)
+    assert torch.cuda.current_device() == 0
+
+
+def test_compiled_step_on_a_second_card(second_card):
+    """`make_jit_lio_step` on cuda:1 with cuda:0 current: its warm-up,
+    capture and replays go to cuda:1, each replay held against the eager
+    step from the same pre-step state."""
+    from dliom_tpu_torch.frontend.lio import make_jit_lio_step
+
+    cfg, scan, state = _small_step_case(second_card)
+    step = make_jit_lio_step(cfg)
+    for i in range(4):
+        inp = scan(i)
+        pre = _clone(state)
+        state, res = step(state, inp)
+        torch.cuda.synchronize(second_card)
+        with torch.cuda.device(second_card):
+            _held_step(cfg, pre, inp, state, res)
+    assert step.counts() == {"steps": 4, "warmups": 1, "captures": 1, "replays": 3}
+    assert res.scan.local_pose.translation.device == second_card
+    assert torch.cuda.current_device() == 0
+
+
+def test_sharded_lio_step_holds_each_shard(cuda_device):
+    """`sharded_lio_step` over the cards present (up to 4; two shards on
+    cuda:0 where there is one card), 2 lanes a shard: every shard's replay
+    against the eager batched body from the same pre-step state (integer
+    state bit for bit, poses within 2e-3), and the replays' K1 / K2
+    launches D times one shard's."""
+    from torch.utils._pytree import tree_leaves
+
+    from dliom_tpu_torch.common import graph as cg
+    from dliom_tpu_torch.common.mesh import Mesh, make_mesh
+    from dliom_tpu_torch.parallel import batch as TBatch
+
+    n = torch.cuda.device_count()
+    mesh = make_mesh(min(4, n)) if n > 1 else Mesh((cuda_device,) * 2)
+    cfg, scan, _ = _small_step_case(cuda_device)
+    batch = 2 * mesh.size
+    states = TBatch.make_sharded_lio_state(cfg, batch, mesh)
+    step = TBatch.sharded_lio_step(cfg, batch, mesh)
+    body = TBatch.batched_lio_body(cfg, 2)
+
+    def lanes(i, dev):
+        one = scan(i)
+        return type(one)(*(x.to(dev).expand((2,) + x.shape).clone() for x in one))
+
+    for i in range(4):
+        inputs = [lanes(i, dev) for dev in mesh.devices]
+        pre = [_clone(s) for s in states]
+        before = cg.launch_counts()
+        states, results = step(states, inputs)
+        for dev in mesh.distinct_devices:
+            torch.cuda.synchronize(dev)
+        launched = {k: v - before[k] for k, v in cg.launch_counts().items()}
+        assert launched == {"dliom_tpu_torch.ops.grouped_apply.LAUNCHES": 2 * mesh.size,
+                            "dliom_tpu_torch.ops.grouped_apply.DENSE_LAUNCHES": 0,
+                            "dliom_tpu_torch.imu.affine_chain.LAUNCHES": mesh.size}, (i, launched)
+        for k, dev in enumerate(mesh.devices):
+            with cg.cusolver(), torch.cuda.device(dev):
+                want_state, want = body(pre[k], inputs[k])
+            for x, y in zip(tree_leaves(states[k]), tree_leaves(want_state)):
+                assert x.device == dev and (x.dtype.is_floating_point or torch.equal(x, y)), (i, k)
+            torch.testing.assert_close(results[k].scan.local_pose.translation,
+                                       want.scan.local_pose.translation, atol=2e-3, rtol=0)
+    assert step.counts() == {"steps": 4 * mesh.size, "warmups": mesh.size, "captures": mesh.size,
+                             "replays": 3 * mesh.size}
