@@ -93,7 +93,8 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      pose (tools/torch_e2e_accuracy.py's `inter_errors`). The
      backend's compiled programs (backend/pose_graph.py: decompress and
      pyramid, the searches with refinement, project, propose, the SPA's
-     GN step, each a CUDA graph captured on its pool thread while the
+     programs (its rows, J^T J p, CG start, CG step and pose update; one
+     shard here), each a CUDA graph captured on its pool thread while the
      frontend replays): their warm-ups, captures and replays, at least one
      capture and one replay of a with-initial search and of the SPA; the
      first HELD_REPLAYS replays of every backend graph held against its
@@ -269,14 +270,22 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      window) beside the unsharded batched step at the same B on the first
      card (aggregate scans/s); K1 2 and K2 1 launches a shard a step,
      counted through the replays (D times a shard's), the step counts, no
-     drops, finite poses; (b) `optimization.solve(mesh=)` on phase 8's
-     final pose-graph data with its node poses perturbed on a fixed seed
-     (MESH_SPA_PERTURB: phase 8's final optimization already solved it),
-     its constraint rows dealt round the shards so that each holds valid
-     ones, against the unsharded solve, MESH_SPA_ITERATIONS eager GN steps
-     each: the solve must move a node by more than MESH_SPA_MOVES (100
-     times the tolerance), poses within MESH_SPA_ATOL, ms a GN step for
-     both; (c) phase 8's largest with-initial search chunk (the first of
+     drops, finite poses; (b) the SPA on phase 8's final pose-graph data
+     with its node poses perturbed on a fixed seed (MESH_SPA_PERTURB:
+     phase 8's final optimization already solved it), its constraint rows
+     dealt round the shards so that each holds valid ones, MESH_SPA_ITERATIONS
+     GN steps a solve: the eager `solve(mesh=)` and the eager unsharded
+     solve; the compiled solves through `PoseGraph._solve` (the SPA's
+     programs over the mesh, per-shard CUDA graphs ordered by stream
+     events, and the same programs as one shard without a mesh), the
+     first call of each (warm-ups and captures) timed apart, then
+     MESH_SPA_CALLS calls, every one held against the eager solve of the
+     same data and mesh; sharded against unsharded, eager and compiled;
+     all within `spa_tolerance` (relative to the solve's movement; its
+     derivation there), the solve moving a node by more than
+     MESH_SPA_MOVES, each f32 solve's departure from a float64 solve of
+     the same problem printed, the programs' counts, ms a GN step for all
+     four; (c) phase 8's largest with-initial search chunk (the first of
      them that found a node) through `PoseGraph(mesh=)` against an
      unsharded pose graph: found and score equal, poses within
      MESH_POSE_ATOL (per metre of the largest translation above 1 m: the
@@ -291,7 +300,15 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      programs on every card where a chunk is as wide as the mesh), held
      against an unsharded pose graph on the same inputs: found and score
      equal, poses within MESH_POSE_ATOL per metre, the solves within
-     MESH_SPA_ATOL.
+     `spa_tolerance`; the SPA programs' warm-ups, captures and replays
+     printed, and no eager GN step run; (e) the frontend's compiled
+     `sharded_step` (`frontend_mesh_config`: tests/test_torch_mesh.py's
+     frontend config with its dense grids on K1's dense entry),
+     MESH_LANES lanes a shard, MESH_FRONTEND_STEPS steps, every step of
+     every shard held against the eager `batched_step` from copies of the
+     same pre-step state (integers bit for bit, floats and poses within
+     HELD_ATOL), K1 dense 2 launches a shard a step counted through the
+     replays, no drops.
 
 Phase 8 compares step by step, not the free-running CPU trajectory: on
 this course an input change of 1e-6 moves the CPU run's fifth local pose
@@ -1458,7 +1475,8 @@ def hold_steps(select=lambda k, rec: False, keep=lambda k, rec: False, after=Non
     return rec
 
 
-BACKEND_GRAPHS = ("decompress", "project", "propose", "search_initial", "search_full", "spa", "ndt")
+BACKEND_GRAPHS = ("decompress", "project", "propose", "search_initial", "search_full", "spa_rows", "spa_jtj",
+                  "spa_start", "spa_cg", "spa", "ndt")
 HELD_REPLAYS = 2  # replays of each backend graph held against the eager body from the same inputs
 
 
@@ -3574,15 +3592,18 @@ MESH_WARMUP = 1
 MESH_HELD = 3  # (a): replays held against each shard's eager step
 MESH_TIMED = 6  # (a): steps timed, sharded and unsharded (lane_scans' ten poses end there)
 MESH_SPA_ITERATIONS = 3  # (b): GN steps of each solve
-MESH_SPA_ATOL = 1e-5  # (b), (d): sharded against unsharded poses, the order of the partial sums only
-MESH_SPA_PERTURB = (0.005, 0.001)  # (b): normal noise (seed 0) on the node translations (m) and quaternions
-# (at 10 times this the solve moved a node 0.19 m and the sharded poses came 8.5e-6 from unsharded: the
-# partial sums' order rounds in proportion to the step)
-MESH_SPA_MOVES = 100 * MESH_SPA_ATOL  # (b): the solve must move a node by more than this (m)
+MESH_SPA_CALLS = 3  # (b): compiled solves timed after the first (warm-ups and captures), each held
+MESH_SPA_PERTURB = (0.05, 0.01)  # (b): normal noise (seed 0) on the node translations (m) and quaternions
+MESH_SPA_F64_NOISE = ((0.005, 0.001), (0.02, 0.004), (0.1, 0.02))  # (b): spa_tolerance's premise held there too
+MESH_SPA_RTOL = 3e-3  # (b), (d): `spa_tolerance`'s share of the solve's movement (derivation there)
+MESH_SPA_ULPS = 4  # (b), (d): `spa_tolerance`'s float32 spacings of the largest pose component
+MESH_SPA_MOVES = 1e-3  # (b): the solve must move a node by more than this (m)
 MESH_BUILDER_SCANS = 64  # (d): scans of phase 8's course through MapBuilder(mesh=)
 MESH_BUILDER_MORE = 32  # (d): at most this many more, 8 at a time, until the pool ran a search and a solve
 MESH_BUILDER_RANGE_DATA = 4  # (d): submaps.num_range_data 16 -> 4, so submaps finish (and searches run) early
 MESH_BUILDER_OPTIMIZE = 16  # (d): pose_graph.optimize_every_n_nodes 32 -> 16
+MESH_FRONTEND_STEPS = 3  # (e): sharded_step's steps, each held shard by shard
+MESH_FRONTEND_GROUPS = 64  # (e): dense_apply_groups, so that the insert runs K1's dense entry (0: scatter)
 MESH_POSE_ATOL = 1e-6  # (c): a chunk's refined poses, split over the shards against one batch, per metre
 # of the chunk's largest translation where that is over 1 m: the batched GN refinement of a piece
 # rounds apart from that of the whole chunk in the last f32 bits, which scale with the translation
@@ -3630,8 +3651,10 @@ def phase_mesh():
 
 
 def sync_mesh(mesh):
+    """The current stream of every card of the mesh synchronized (never the
+    device: a pool thread may be capturing)."""
     for d in mesh.distinct_devices:
-        torch.cuda.synchronize(d)
+        torch.cuda.current_stream(d).synchronize()
 
 
 def mesh_lio(ga, ac, mesh):
@@ -3725,59 +3748,183 @@ def mesh_lio(ga, ac, mesh):
                       "last_pose_vs_unsharded": lane_diff}
 
 
-def mesh_spa(mesh):
-    """Phase 16 (b): `optimization.solve(mesh=)` on phase 8's final
-    pose-graph data against the unsharded GN from the same data. The
-    problem's valid constraint rows fill its first rows, so the sharded
-    solve takes the rows dealt round the shards (row i to shard i % D,
-    every shard then holds valid rows): the same problem, its rows in
-    another order."""
-    from dliom_tpu_torch.backend import optimization as opt
-    from dliom_tpu_torch.backend.pose_graph import _spa_settings
-    from dliom_tpu_torch.common.config import load_config
+def spa_tolerance(moved, scale):
+    """(b), (d): the gate between two float32 solves of one SPA problem
+    that differ only in the order of their partial sums (sharded against
+    unsharded, a replay against the eager solve): MESH_SPA_RTOL times the
+    solve's largest node movement `moved` plus MESH_SPA_ULPS float32
+    spacings of the largest pose component `scale` (m).
 
+    Derivation. A float32 solve departs from the float64 solve of the
+    same problem by its own rounding: each GN step's 64 Jacobi-
+    preconditioned CG steps give an increment whose error grows with the
+    increment (the conditioning of the normal equations times the unit
+    roundoff), and each pose update rounds once to the pose's spacing. So
+    |f32 - f64| <= r moved + k spacing(scale), and for two f32 solves
+    |a - b| <= |a - f64| + |b - f64| <= 2 r moved + 2 k spacing(scale).
+    Measured (PERF.md §6; `spa_f64_errors` prints it every run), on four
+    of phase 8's final problems (7-8 submaps, 108-116 nodes, 219-242
+    rows; 3 GN steps) with their node poses perturbed by (0.005, 0.001)
+    to (0.1, 0.02): every f32 solve, sharded or not, came within 3.3e-5 to
+    3.4e-4 of the movement (0.019 to 0.377 m) of the float64 solve, so r
+    <= 3.4e-4 and 2 r = 6.8e-4; the problems' largest r spread by a
+    factor of 5, and MESH_SPA_RTOL keeps a factor of 4.4 over 2 r. k = 2
+    covers 3 pose roundings of half a spacing. The sharded and unsharded
+    solves came 7.2e-7 to 2.9e-5 apart (at most 2.9e-4 of the movement);
+    the compiled and eager solves 0. A lost or stale partial sum moves the
+    poses by a share of the movement itself, far above the gate.
+    `mesh_spa` checks the premise, each f32 solve within half the gate of
+    the float64 solve."""
+    return MESH_SPA_RTOL * moved + MESH_SPA_ULPS * float(np.spacing(np.float32(scale)))
+
+
+def spa_problem(noise):
+    """Phase 8's final pose-graph problem (host arrays, blocks) with its node
+    poses perturbed by normal noise (seed 0) of `noise` (m, quaternion
+    components): phase 8's final optimization solved it already."""
     host, n_sub, n_node, blocks = MESH_INPUTS["problem"]
-    host = dict(host)  # phase 8 solved it already: its node poses perturbed so that the solve moves them
+    host = dict(host)
     rng = np.random.default_rng(0)
     t, q = host["node_t"].copy(), host["node_q"].copy()
-    t[:n_node] += rng.normal(0.0, MESH_SPA_PERTURB[0], (n_node, 3)).astype(t.dtype)
-    q[:n_node] += rng.normal(0.0, MESH_SPA_PERTURB[1], (n_node, 4)).astype(q.dtype)
+    t[:n_node] += rng.normal(0.0, noise[0], (n_node, 3)).astype(t.dtype)
+    q[:n_node] += rng.normal(0.0, noise[1], (n_node, 4)).astype(q.dtype)
     q[:n_node] /= np.linalg.norm(q[:n_node], axis=-1, keepdims=True)
     host["node_t"], host["node_q"] = t, q
-    op = load_config("basic", E2E_OVERRIDES).pose_graph.optimization_problem
-    kw = dict(iterations=MESH_SPA_ITERATIONS, **_spa_settings(op, blocks))
-    data = opt.PoseGraphData(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.first)
-                                for k, v in host.items()})
+    return host, n_sub, n_node, blocks
+
+
+def spa_f64_errors(op, data, blocks, solves):
+    """Each float32 solve's flat host poses in `solves` against a float64
+    solve of the same problem (`data`, on its device): the largest
+    difference of each."""
+    from dliom_tpu_torch.backend import optimization as opt
+    from dliom_tpu_torch.backend.pose_graph import _spa_settings
+
+    d64 = opt.PoseGraphData(*(x.double() if x.is_floating_point() else x for x in data))
+    ref = opt.solve(d64, iterations=MESH_SPA_ITERATIONS, **_spa_settings(op, blocks))
+    ref = torch.cat([getattr(ref, f).reshape(-1) for f in ("submap_q", "submap_t", "node_q", "node_t",
+                                                          "lm_positions")]).cpu().numpy()
+    return {k: float(np.abs(v.astype(np.float64) - ref).max()) for k, v in solves.items()}
+
+
+def mesh_spa(mesh):
+    """Phase 16 (b): the SPA over the mesh on phase 8's final problem
+    (`spa_problem`), its constraint rows dealt round the shards (row i to
+    shard i % D, so every shard holds valid rows: the same problem, its
+    rows in another order). The eager `solve(mesh=)` and the eager
+    unsharded solve, a warm-up then one timed; the compiled solves through
+    `PoseGraph._solve` (backend/pose_graph.py::_SpaPrograms: over the mesh,
+    and a single shard without one), the first call of each (warm-ups and
+    captures) timed apart, then MESH_SPA_CALLS calls timed, every call
+    held against the eager solve of the same data and mesh; sharded
+    against unsharded, eager and compiled, within `spa_tolerance`; the
+    solve must move a node by more than MESH_SPA_MOVES; each f32 solve
+    against a float64 solve of the same problem. ms a GN step on the host
+    clock (a compiled call: the staging copies, MESH_SPA_ITERATIONS GN
+    steps and the host read of the poses)."""
+    from dliom_tpu_torch.backend import optimization as opt
+    from dliom_tpu_torch.backend.pose_graph import PoseGraph, _spa_settings, spa_solve_eager
+    from dliom_tpu_torch.common.config import load_config
+
+    host, n_sub, n_node, blocks = spa_problem(MESH_SPA_PERTURB)
     rows = host["c_valid"].shape[0]
-    dealt = torch.from_numpy(np.argsort(np.arange(rows) % mesh.size, kind="stable")).to(mesh.first)
-    spread = data._replace(**{f: getattr(data, f)[dealt] for f in opt._C_FIELDS})
+    dealt = np.argsort(np.arange(rows) % mesh.size, kind="stable")
+
+    def dealt_rows(h):
+        return dict(h, **{f: h[f][dealt] for f in opt._C_FIELDS})
+
+    spread = dealt_rows(host)
     per = -(-rows // mesh.size)
-    valid_per_shard = [int(spread.c_valid[k * per:(k + 1) * per].sum()) for k in range(mesh.size)]
-    out, ms = {}, {}
-    for name, m, d in (("unsharded", None, data), ("sharded", mesh, spread)):
-        opt.solve(d, mesh=m, **kw)  # warm-up
+    valid_per_shard = [int(spread["c_valid"][k * per:(k + 1) * per].sum()) for k in range(mesh.size)]
+    cfg = load_config("basic", E2E_OVERRIDES)
+    op = cfg.pose_graph.optimization_problem
+    cases = {"unsharded": (None, host), "sharded": (mesh, spread)}
+    data, eager, ms, first_ms, held, counts = {}, {}, {}, {}, {}, {}
+    for name, (m, h) in cases.items():
+        data[name] = opt.PoseGraphData(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.first)
+                                          for k, v in h.items()})
+        spa_solve_eager(op, data[name], MESH_SPA_ITERATIONS, blocks, m)  # warm-up
         sync_mesh(mesh)
         t0 = time.perf_counter()
-        out[name] = opt.solve(d, mesh=m, **kw)
+        eager[name] = spa_solve_eager(op, data[name], MESH_SPA_ITERATIONS, blocks, m)
         sync_mesh(mesh)
-        ms[name] = (time.perf_counter() - t0) * 1e3 / MESH_SPA_ITERATIONS
-    diff = max(float((getattr(out["sharded"], f) - getattr(out["unsharded"], f)).abs().max())
-               for f in ("submap_q", "submap_t", "node_q", "node_t", "lm_positions"))
+        ms[f"eager_{name}"] = (time.perf_counter() - t0) * 1e3 / MESH_SPA_ITERATIONS
+    moved = float((eager["unsharded"].node_t - data["unsharded"].node_t).abs().max())
+    scale = max(float(np.abs(host[f]).max()) for f in ("submap_t", "node_t"))
+    tol = spa_tolerance(moved, scale)
+    flat, pgs = {}, {}
+    for name, (m, h) in cases.items():
+        pg = pgs[name] = PoseGraph(cfg.pose_graph, cfg.trajectory_builder, device=mesh.first, mesh=m)
+        flat[f"eager_{name}"] = pg._read_poses(eager[name])
+        sync_mesh(mesh)
+        t0 = time.perf_counter()
+        got = [pg._solve(h, MESH_SPA_ITERATIONS, blocks)]  # the warm-ups and captures
+        first_ms[name] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for _ in range(MESH_SPA_CALLS):
+            got.append(pg._solve(h, MESH_SPA_ITERATIONS, blocks))  # replays; each ends in its host read
+        ms[f"compiled_{name}"] = (time.perf_counter() - t0) * 1e3 / (MESH_SPA_CALLS * MESH_SPA_ITERATIONS)
+        held[name] = max(float(np.abs(g - flat[f"eager_{name}"]).max()) for g in got)
+        flat[f"compiled_{name}"] = got[-1]
+        counts[name] = {k: v for k, v in pg.graph_counts().items() if k.startswith("spa")}
+    diff = {"eager": float(np.abs(flat["eager_sharded"] - flat["eager_unsharded"]).max()),
+            "compiled": float(np.abs(flat["compiled_sharded"] - flat["compiled_unsharded"]).max())}
+    f64 = spa_f64_errors(op, data["unsharded"], blocks, flat)
+    # spa_tolerance's premise at other movements, through the compiled programs (equal to eager above)
+    premise = {}
+    for noise in MESH_SPA_F64_NOISE:
+        h = spa_problem(noise)[0]
+        d = opt.PoseGraphData(**{k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.first) for k, v in h.items()})
+        solves = {name: pg._solve(h if name == "unsharded" else dealt_rows(h), MESH_SPA_ITERATIONS, blocks)
+                  for name, pg in pgs.items()}
+        e = spa_f64_errors(op, d, blocks, solves)
+        s_, n_ = h["submap_q"].shape[0], h["node_q"].shape[0]
+        at = 7 * s_ + 4 * n_  # the node translations in `_read_poses`' layout
+        m_ = float(np.abs(solves["unsharded"][at:at + 3 * n_] - h["node_t"].reshape(-1)).max())
+        premise[str(noise)] = {"moved": m_, "tolerance": spa_tolerance(m_, scale), "f64_error": e,
+                               "sharded_vs_unsharded": float(np.abs(solves["sharded"] - solves["unsharded"]).max())}
+    del pgs
     n_c = int(host["c_valid"].sum())
-    moved = float((out["unsharded"].node_t - data.node_t).abs().max())
-    print(f"mesh: solve(mesh=) on phase 8's final problem, node poses perturbed by {MESH_SPA_PERTURB} "
-          f"(seed 0) ({n_sub} submaps, {n_node} nodes, {n_c} of "
-          f"{rows} constraint rows, valid rows by shard {valid_per_shard}; {MESH_SPA_ITERATIONS} GN steps "
-          f"of 64 CG steps, eager): "
-          f"{ms['sharded']:.2f} ms a GN step over {mesh.size} shards, {ms['unsharded']:.2f} ms unsharded; poses "
-          f"differ by {diff:.3e} (tolerance {MESH_SPA_ATOL}); the solve moved a node by up to {moved:.3e} m",
-          flush=True)
-    check(diff <= MESH_SPA_ATOL, f"phase 16: sharded SPA vs unsharded poses differ by {diff:.3e}")
+    print(f"mesh: the SPA on phase 8's final problem, node poses perturbed by {MESH_SPA_PERTURB} (seed 0) "
+          f"({n_sub} submaps, {n_node} nodes, {n_c} of {rows} constraint rows, valid rows by shard "
+          f"{valid_per_shard}; {MESH_SPA_ITERATIONS} GN steps of 64 CG steps), ms a GN step (host clock, "
+          f"streams synchronized): compiled {ms['compiled_sharded']:.2f} over {mesh.size} shards, "
+          f"{ms['compiled_unsharded']:.2f} unsharded (first call, warm-ups and captures: "
+          f"{first_ms['sharded']:.1f} / {first_ms['unsharded']:.1f} ms); eager {ms['eager_sharded']:.2f} "
+          f"sharded, {ms['eager_unsharded']:.2f} unsharded; the solve moved a node by up to {moved:.3e} m; "
+          f"tolerance {tol:.3e} (spa_tolerance: {MESH_SPA_RTOL} x moved + {MESH_SPA_ULPS} spacings of "
+          f"{scale:.3f}); compiled vs eager ({1 + MESH_SPA_CALLS} calls each): sharded {held['sharded']:.3e}, "
+          f"unsharded {held['unsharded']:.3e}; sharded vs unsharded: eager {diff['eager']:.3e}, compiled "
+          f"{diff['compiled']:.3e}; each against a float64 solve: "
+          + ", ".join(f"{k} {v:.3e} ({v / moved:.2e} of the movement)" for k, v in f64.items())
+          + f"; program counts {counts}; at other noise (compiled solves against float64): "
+          + "; ".join(f"{k}: moved {v['moved']:.3e}, sharded vs unsharded {v['sharded_vs_unsharded']:.3e}, "
+                      + ", ".join(f"{n} {x:.3e} ({x / v['moved']:.2e})" for n, x in v["f64_error"].items())
+                      for k, v in premise.items()), flush=True)
+    for name in cases:
+        check(held[name] <= tol, f"phase 16: compiled {name} SPA vs eager: {held[name]:.3e} > {tol:.3e}")
+    for name, e in f64.items():
+        check(e <= tol / 2, f"phase 16: the {name} SPA departs from a float64 solve by {e:.3e} > {tol / 2:.3e}, "
+              "spa_tolerance's premise")
+    for noise, v in premise.items():
+        check(max(v["f64_error"].values()) <= v["tolerance"] / 2 and v["sharded_vs_unsharded"] <= v["tolerance"],
+              f"phase 16: the SPA at noise {noise}: {v}")
+    for kind, d in diff.items():
+        check(d <= tol, f"phase 16: {kind} sharded SPA vs unsharded poses differ by {d:.3e} > {tol:.3e}")
     check(moved > MESH_SPA_MOVES, f"phase 16: the solve moved a node by {moved:.3e} m, not more than "
           f"{MESH_SPA_MOVES:.0e} m")
     check(all(valid_per_shard) or n_c < mesh.size, f"phase 16: every shard holds valid rows {valid_per_shard}")
-    return {"gn_step_ms": ms["sharded"], "unsharded_gn_step_ms": ms["unsharded"], "pose_diff": diff,
-            "moved_m": moved, "constraints": n_c, "valid_rows_by_shard": valid_per_shard, "submaps": n_sub, "nodes": n_node}
+    gn, cg_steps = (1 + MESH_SPA_CALLS) * MESH_SPA_ITERATIONS, _spa_settings(op, blocks)["cg_iterations"]
+    for name, m in (("sharded", mesh.size), ("unsharded", 1)):
+        want = {k: {"steps": gn * each * n, "warmups": n, "captures": n, "replays": gn * each * n - n}
+                for k, each, n in (("spa_rows", 1, m), ("spa_jtj", cg_steps, m), ("spa_start", 1, 1),
+                                   ("spa_cg", cg_steps, 1), ("spa", 1, 1))}
+        check(counts[name] == want, f"phase 16: compiled {name} SPA program counts {counts[name]}, not {want}")
+    return {"gn_step_ms": ms["eager_sharded"], "unsharded_gn_step_ms": ms["eager_unsharded"],
+            "compiled_gn_step_ms": ms["compiled_sharded"], "compiled_unsharded_gn_step_ms": ms["compiled_unsharded"],
+            "compiled_first_call_ms": first_ms, "held": held, "pose_diff": diff, "tolerance": tol,
+            "moved_m": moved, "f64_error": f64, "constraints": n_c, "valid_rows_by_shard": valid_per_shard,
+            "submaps": n_sub, "nodes": n_node, "program_counts": counts, "premise": premise}
 
 
 def chunk_diff(a, b):
@@ -3829,6 +3976,7 @@ def mesh_builder(ga, ac, mesh, dev):
     course (cut so that submaps finish and solves fall early), every loop
     search chunk and SPA solve of its pool recorded, then each held against
     an unsharded pose graph on the same inputs; see the module docstring."""
+    from dliom_tpu_torch.backend import optimization as opt
     from dliom_tpu_torch.backend.pose_graph import PoseGraph
     from dliom_tpu_torch.common.config import load_config
     from dliom_tpu_torch.common.mesh import indexed
@@ -3855,6 +4003,14 @@ def mesh_builder(ga, ac, mesh, dev):
         return out
 
     pg._search, pg._solve = recorded_search, recorded_solve
+    eager_gn = []  # threads that ran an eager SPA GN step
+    eager_gn_step = opt._gn_step
+
+    def counted_gn_step(*args, **kwargs):
+        eager_gn.append(threading.get_ident())
+        return eager_gn_step(*args, **kwargs)
+
+    opt._gn_step = counted_gn_step
     ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the builder's main path starts: zero the launch counts
     t0 = time.perf_counter()
     n = 0
@@ -3868,6 +4024,8 @@ def mesh_builder(ga, ac, mesh, dev):
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
     pg._search, pg._solve = search, solve
+    opt._gn_step = eager_gn_step
+    spa_counts = {k: v for k, v in pg.graph_counts().items() if k.startswith("spa")}
     results = builder.local_trajectory(0)
     stepped = len(results)
     counts = check_graph_counts("mesh builder", builder.step_counts(), stepped)
@@ -3886,9 +4044,14 @@ def mesh_builder(ga, ac, mesh, dev):
           f"mesh builder: the pool tasks' streams on {sorted(map(str, stream_devices))}")
     check(widest < mesh.size or program_devices == set(mesh.distinct_devices),
           f"mesh builder: search programs on {sorted(map(str, program_devices))}, chunks up to {widest} nodes")
+    check(not eager_gn, f"mesh builder: {len(eager_gn)} eager SPA GN steps ran, {sum(t != main_thread for t in eager_gn)} "
+          "of them on the pool threads")
+    check(set(spa_counts) == {"spa_rows", "spa_jtj", "spa_start", "spa_cg", "spa"}
+          and all(c["replays"] >= 1 and c["warmups"] == c["captures"] and c["steps"] == c["warmups"] + c["replays"]
+                  for c in spa_counts.values()), f"mesh builder: the SPA programs' counts {spa_counts}")
 
     ref = PoseGraph(cfg.pose_graph, cfg.trajectory_builder, device=dev)
-    worst_pose, worst_spa, moved, found = 0.0, 0.0, 0.0, 0
+    worst_pose, worst_spa, spa_tol, moved, found = 0.0, 0.0, 0.0, 0.0, 0
     for kind, hit, arrays, out, _ in searches:
         want = ref._search(kind, hit, arrays).cpu()
         got = out.cpu()
@@ -3901,10 +4064,12 @@ def mesh_builder(ga, ac, mesh, dev):
         want = ref._solve(problem, iterations, blocks)
         before = np.concatenate([problem[f].reshape(-1) for f in ("submap_q", "submap_t", "node_q", "node_t",
                                                                    "lm_positions")])
-        worst_spa = max(worst_spa, float(np.abs(out - want).max()))
+        d = float(np.abs(out - want).max())
+        tol = spa_tolerance(float(np.abs(want - before).max()),
+                            max(float(np.abs(problem[f]).max()) for f in ("submap_t", "node_t")))
+        check(d <= tol, f"mesh builder: a pool's sharded solve differs from unsharded by {d:.3e} > {tol:.3e}")
+        worst_spa, spa_tol = max(worst_spa, d), max(spa_tol, tol)
         moved = max(moved, float(np.abs(want - before).max()))
-    check(worst_spa <= MESH_SPA_ATOL, f"mesh builder: the pool's sharded solves differ from unsharded by "
-          f"{worst_spa:.3e}")
     kinds = collections.Counter(k for k, *_ in searches)
     print(f"mesh: MapBuilder(mesh=) with {cfg.map_builder.num_background_threads} pool threads on phase 8's "
           f"course (num_range_data {MESH_BUILDER_RANGE_DATA}, optimize_every_n_nodes {MESH_BUILDER_OPTIMIZE}): "
@@ -3914,13 +4079,118 @@ def mesh_builder(ga, ac, mesh, dev):
           f"programs on {sorted(map(str, program_devices))}, task streams on "
           f"{sorted(map(str, stream_devices))}; held against an unsharded pose graph on the same inputs: "
           f"found and score equal, poses within {worst_pose:.3e}; solves within {worst_spa:.3e} (tolerance "
-          f"{MESH_SPA_ATOL}; they moved a pose by up to {moved:.3e}); launches {launches}", flush=True)
+          f"up to {spa_tol:.3e}, spa_tolerance; they moved a pose by up to {moved:.3e}); the SPA programs "
+          f"(no eager GN step ran): {spa_counts}; launches {launches}", flush=True)
     del ref, builder, pg, searches, solves
     return launches, {"scans": n, "stepped": stepped, "seconds": course_s, "search_chunks": dict(kinds),
                       "solves": on_pool[1], "found": found, "chunk_pose_diff": worst_pose,
-                      "spa_pose_diff": worst_spa, "spa_moved": moved, "compiled_step": counts,
+                      "spa_pose_diff": worst_spa, "spa_moved": moved, "spa_programs": spa_counts,
+                      "compiled_step": counts,
                       "program_devices": sorted(map(str, program_devices)),
                       "stream_devices": sorted(map(str, stream_devices))}
+
+
+def frontend_mesh_config():
+    """(e): tests/test_torch_mesh.py's frontend config (tests/test_parallel.py
+    :26-46), its dense grids on K1's dense entry: dense_apply_groups
+    MESH_FRONTEND_GROUPS, and the low extent 48 -> 32, since K1's groups of
+    16384 cells must divide the bank (2 x 48^3 cells do not)."""
+    from dliom_tpu_torch.common.config import load_config
+
+    return load_config("basic", {"trajectory_builder": {
+        "min_range": 0.5, "max_range": 50.0, "voxel_filter_size": 0.2, "scan_period": 0.3,
+        "ceres_scan_matcher": {"max_num_iterations": 6},
+        "motion_filter": {"max_time_seconds": 0.0, "max_distance_meters": 0.0, "max_angle_radians": 0.0},
+        "submaps": {"high_resolution": 0.25, "high_resolution_max_range": 50.0, "low_resolution": 0.8,
+                    "num_range_data": 100, "high_resolution_extent": 96, "low_resolution_extent": 32,
+                    "dense_apply_groups": MESH_FRONTEND_GROUPS},
+        "max_filtered_points": 1024, "max_high_res_points": 512, "max_low_res_points": 512,
+    }}).trajectory_builder
+
+
+def frontend_scans(cfg, device, batch, steps):
+    """tests/test_parallel.py's scan batch (lane b in its world offset 0.05 b
+    m along x) at every step, the body 0.02 m further along x a step,
+    stamped 0.3 s apart."""
+    from dliom_tpu_torch.frontend.local_trajectory_builder import ScanInput
+    from dliom_tpu_torch.io.synthetic import SyntheticWorld
+    from dliom_tpu_torch.sensor.types import pad_point_cloud
+    from dliom_tpu_torch.transform.rigid import Rigid3
+
+    world = SyntheticWorld.create(num_beams=4, num_azimuths=100)
+    out = []
+    for k in range(steps):
+        clouds = [pad_point_cloud(*world.cast_scan(Rigid3.translation_only(
+            np.asarray([0.05 * b + 0.02 * k, 0.0, 0.0], np.float32))), cfg.max_filtered_points)
+            for b in range(batch)]
+        stack = lambda f: torch.from_numpy(np.stack([np.asarray(getattr(c, f)) for c in clouds])).to(device)  # noqa: E731
+        out.append(ScanInput(
+            time=torch.full((batch,), 0.3 * (k + 1), device=device), points=stack("points"), times=stack("times"),
+            mask=torch.ones(batch, cfg.max_filtered_points, dtype=torch.bool, device=device),
+            relative_prediction=Rigid3(torch.tensor([[1.0, 0.0, 0.0, 0.0]] * batch, device=device),
+                                       torch.zeros(batch, 3, device=device))))
+    return out
+
+
+def mesh_frontend(ga, ac, mesh):
+    """Phase 16 (e): the compiled frontend `sharded_step` (a StepGraph of the
+    batched frontend step per shard), MESH_LANES lanes a shard, at
+    `frontend_mesh_config`, MESH_FRONTEND_STEPS steps: every step of every
+    shard (the first the warm-up and capture, then replays) held against
+    the eager `batched_step` from copies of the same pre-step state
+    (integer state and result flags bit for bit, float state and poses
+    within HELD_ATOL); K1's dense entry 2 launches a shard a step, counted
+    through the replays, no K2; no drops."""
+    from torch.utils._pytree import tree_leaves
+
+    from dliom_tpu_torch.common.mesh import shard_over_mesh
+    from dliom_tpu_torch.parallel.batch import batched_step, make_batched_state, sharded_step
+
+    d = mesh.size
+    batch = MESH_LANES * d
+    cfg = frontend_mesh_config()
+    scans = [shard_over_mesh(x, mesh) for x in frontend_scans(cfg, mesh.first, batch, MESH_FRONTEND_STEPS)]
+    states = [make_batched_state(cfg, MESH_LANES, dev) for dev in mesh.devices]  # lanes from 0 on each shard
+    step, body = sharded_step(cfg, mesh), batched_step(cfg)
+    ints, floats, pose = [], 0.0, 0.0
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the sharded frontend step starts: zero the launch counts
+    t0 = time.perf_counter()
+    for k, inputs in enumerate(scans):
+        pre = [tree_clone(st) for st in states]
+        states, res = step(states, inputs)
+        sync_mesh(mesh)
+        for s_, dev in enumerate(mesh.devices):
+            with torch.cuda.device(dev):
+                want = without_launches(lambda: body(pre[s_], inputs[s_]))
+            for x, y in zip(tree_leaves((states[s_], res[s_])), tree_leaves(want)):
+                if x is None:
+                    continue
+                if x.dtype.is_floating_point:
+                    floats = max(floats, float((x - y).abs().max()) if x.numel() else 0.0)
+                elif not torch.equal(x, y):
+                    ints.append((k, s_))
+            pose = max(pose, float((res[s_].local_pose.translation - want[1].local_pose.translation).abs().max()),
+                       float((res[s_].local_pose.rotation - want[1].local_pose.rotation).abs().max()))
+    seconds = time.perf_counter() - t0
+    launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
+                "affine_chain": ac.LAUNCHES}
+    n = d * MESH_FRONTEND_STEPS
+    counts = step.counts()
+    drops = sum(int(st.submaps.dense_dropped.sum()) for st in states)
+    print(f"mesh: the frontend's compiled sharded_step, B={batch} over {d} shards ({MESH_LANES} lanes each), "
+          f"{MESH_FRONTEND_STEPS} steps (tests/test_torch_mesh.py's frontend config, dense_apply_groups "
+          f"{MESH_FRONTEND_GROUPS}, low extent 32) in {seconds:.2f} s with the holds: every shard's step against "
+          f"the eager batched_step from the same pre-step state: integer state and flags differ at {ints or 'none'}, "
+          f"float state within {floats:.3e}, poses within {pose:.3e}; counts {counts}; drops {drops}; launches "
+          f"{launches}", flush=True)
+    check(not ints, f"phase 16 (e): integer state differs at (step, shard) {ints}")
+    check(pose <= HELD_ATOL and floats <= HELD_ATOL, f"phase 16 (e): poses {pose:.3e}, float state {floats:.3e}")
+    check(counts == {"steps": n, "warmups": d, "captures": d, "replays": n - d}, f"phase 16 (e): counts {counts}")
+    check(launches == {"grouped_apply": 2 * n, "grouped_apply_dense": 2 * n, "affine_chain": 0},
+          f"phase 16 (e): launches {launches} for {MESH_FRONTEND_STEPS} steps over {d} shards (K1 dense 2 a shard a step)")
+    check(drops == 0, f"phase 16 (e): dropped grid updates {drops}")
+    return launches, {"lanes": batch, "shards": d, "steps": MESH_FRONTEND_STEPS, "seconds": seconds,
+                      "pose_diff": pose, "float_diff": floats, "compiled_step": counts}
 
 
 def check_mesh(ga, ac, dev):
@@ -3937,12 +4207,14 @@ def check_mesh(ga, ac, dev):
     search = mesh_search(mesh, dev)
     t3 = time.perf_counter()
     builder_launches, builder = mesh_builder(ga, ac, mesh, dev)
+    t4 = time.perf_counter()
+    frontend_launches, frontend = mesh_frontend(ga, ac, mesh)
     seconds = time.perf_counter() - t0
     print(f"phase 16: {seconds:.1f} s (aim {PHASE16_AIM_S:.0f} s; (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
-          f"(c) {t3 - t2:.1f}, (d) {seconds - t3 + t0:.1f})", flush=True)
-    return {**launches, "builder": builder_launches}, {
+          f"(c) {t3 - t2:.1f}, (d) {t4 - t3:.1f}, (e) {seconds - t4 + t0:.1f})", flush=True)
+    return {**launches, "builder": builder_launches, "frontend": frontend_launches}, {
         "mesh": [str(d) for d in mesh.devices], "distinct_devices": distinct, "lio": lio, "spa": spa,
-        "search": search, "builder": builder, "seconds": seconds}
+        "search": search, "builder": builder, "frontend": frontend, "seconds": seconds}
 
 
 def main():
@@ -4022,7 +4294,8 @@ def main():
                       "checkpoint": io_launches["grouped_apply_dense"],
                       "batched": batched_launches["grouped_apply_dense"],
                       "cloud": cloud_launches["grouped_apply_dense"],
-                      "mesh_builder": mesh_launches["builder"]["grouped_apply_dense"]}
+                      "mesh_builder": mesh_launches["builder"]["grouped_apply_dense"],
+                      "mesh_frontend": mesh_launches["frontend"]["grouped_apply_dense"]}
 
     print(json.dumps({"card": card, "slice_scans_per_s": scans_per_s, "compiled": compiled, "mapping": mapping,
                       "campus": campus, "viral": viral, "correlative": correlative, "io": io,
@@ -4056,8 +4329,11 @@ def main():
                                   "mesh_builder": f"phase 8's course cut to {mesh['builder']['scans']} scans; "
                                                   f"submaps.num_range_data 16 -> {MESH_BUILDER_RANGE_DATA}, "
                                                   "pose_graph.optimize_every_n_nodes 32 -> "
-                                                  f"{MESH_BUILDER_OPTIMIZE}; no final optimization (400 "
-                                                  "eager sharded GN steps)"}}))
+                                                  f"{MESH_BUILDER_OPTIMIZE}; no final optimization",
+                                  "mesh_frontend": f"tests/test_torch_mesh.py's frontend config for "
+                                                   f"{MESH_FRONTEND_STEPS} steps, its low extent 48 -> 32 and "
+                                                   f"dense_apply_groups 0 -> {MESH_FRONTEND_GROUPS}, so that its "
+                                                   "insert runs K1's dense entry"}}))
 
     def record(name, source, replaces, n, timed, err, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n,

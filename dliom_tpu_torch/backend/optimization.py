@@ -12,8 +12,11 @@ reverse mode (six backward passes over per-constraint tangent copies);
 each CG step is then a few batched products and index-adds. The node-node,
 fixed-frame and landmark rows stay matrix-free through `torch.func.vjp`:
 J^T u is their residuals' vjp and J v the vjp of that linear map u ->
-J^T u (the double-vjp form of a jvp). Blocks with no valid entry are left
-out: their rows and Jacobians are exact zeros.
+J^T u (the double-vjp form of a jvp), taken again in each CG step (each
+CG step is one compiled program, and nothing but tensors passes between
+programs). Blocks with no valid entry are left out: their rows and
+Jacobians are exact zeros. The solve runs in the float type of the data:
+float32 in the port, float64 for a reference that bounds its rounding.
 
 No forward-mode AD here: the SPA runs on background threads, and
 forward-mode AD keeps its level in process-global state.
@@ -21,6 +24,8 @@ forward-mode AD keeps its level in process-global state.
 
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
@@ -28,7 +33,7 @@ from torch.func import vjp
 
 from dliom_tpu_torch.common import mesh as _mesh
 from dliom_tpu_torch.common.mesh import Mesh, shard_over_mesh
-from dliom_tpu_torch.ops.segment import segment_plan, segment_sum
+from dliom_tpu_torch.ops.segment import SegmentPlan, segment_plan, segment_sum
 from dliom_tpu_torch.transform.rigid import (
     quat_conjugate,
     quat_from_axis_angle,
@@ -213,7 +218,10 @@ def blocks_of(data: PoseGraphData):
 
 
 _C_FIELDS = ("c_submap", "c_node", "c_q", "c_t", "c_trans_weight", "c_rot_weight", "c_valid", "c_is_inter")
-_REPLICATED = ("submap_q", "submap_t", "node_q", "node_t")  # what a shard's SPA rows read besides its own
+_POSES = ("submap_q", "submap_t", "node_q", "node_t")
+# what a shard's SPA rows read besides its own rows: the poses, and the flags of what a step may move
+_REPLICATED = _POSES + ("submap_valid", "submap_fixed", "node_valid", "node_fixed")
+SHARD_FIELDS = _C_FIELDS + _REPLICATED  # `spa_rows`' input, in this order
 
 
 def shard_constraints(data: PoseGraphData, mesh: Mesh) -> list:
@@ -238,7 +246,9 @@ def solve(data: PoseGraphData, *, iterations: int = 10, cg_iterations: int = 64,
     `gn_step`). `blocks` as `blocks_of` gives them (read from `data` when
     None). `mesh`: the constraint rows split over its shards once
     (`shard_constraints`), each GN step as `gn_step(mesh=)` describes;
-    `data` lives on the mesh's first device, as does the result."""
+    `data` lives on the mesh's first device, as does the result. Eager:
+    the pose graph replays the same bodies as compiled programs
+    (`backend/pose_graph.py`)."""
     if blocks is None:
         blocks = blocks_of(data)
     shards = None if mesh is None else shard_constraints(data, mesh)
@@ -253,53 +263,82 @@ def gn_step(d: PoseGraphData, *, cg_iterations: int = 64, fix_first_submap: bool
             ff_huber_scale: float = 0.0, inter_huber_scale: float = 0.0,
             blocks=(True, True, True), mesh: Mesh | None = None) -> PoseGraphData:
     """One Gauss-Newton step of `solve`: the new submap, node and landmark
-    poses. It reads nothing on the host, so a CUDA graph captures it
-    (`backend/pose_graph.py` replays one step `iterations` times); the rows
-    of the blocks `blocks` switches off must all be invalid.
+    poses. It reads nothing on the host; the rows of the blocks `blocks`
+    switches off must all be invalid.
 
     `mesh`: the SPA constraint rows split over its shards (the JAX
     package's sharded constraint arrays, dliom_tpu/backend/optimization.py
-    :275-300). Each shard builds its rows' residuals and Jacobian blocks on
-    its device from replicated poses; the gradient, the Jacobi diagonal and
-    every CG step's J^T J p are per-shard partial sums, each copied to the
-    first device and added in shard order (`common/mesh.py::reduce_add`),
-    and each CG direction goes back out to the shards. The node-node,
-    fixed-frame and landmark blocks and the CG vectors stay on the first
-    device. Without a mesh the same code runs as one shard."""
+    :275-300). Without a mesh the same code runs as one shard on d's
+    device. The step is four bodies, which the pose graph compiles one
+    program each:
+      (a) `spa_rows`, per shard on its device: from the replicated poses,
+          the shard's residuals and Jacobian blocks, with its partial
+          gradient and partial Jacobi diagonal;
+      (b) `spa_jtj`, per shard, per CG step: its partial J^T J p;
+      (c) `cg_start` once, then `cg_update` per CG step, on the first
+          device: the partial sums, each copied there, added in shard order
+          (a mesh that repeats one device adds in the order of distinct
+          cards), the node-node, fixed-frame and landmark blocks, and the
+          CG's start or one CG step;
+      (d) `pose_update`, on the first device.
+    Each CG direction goes back out to the shards."""
     shards = None if mesh is None else shard_constraints(d, mesh)
     return _gn_step(d, cg_iterations=cg_iterations, fix_first_submap=fix_first_submap,
                     ff_huber_scale=ff_huber_scale, inter_huber_scale=inter_huber_scale, blocks=blocks,
                     mesh=mesh, shards=shards)
 
 
-class _SpaRows:
-    """One shard's SPA rows at the current poses: residuals r (C, 6) and
-    the two Jacobian block columns j_s, j_n (C, 6, 6), with the segment
-    plans of their submap and node ids. Every row touches one submap and
-    one node; with per-constraint tangent copies, row k of every block is
-    one backward pass of the k-th residuals' sum."""
+def _gn_step(d: PoseGraphData, *, cg_iterations: int, fix_first_submap: bool, ff_huber_scale: float,
+             inter_huber_scale: float, blocks, mesh: Mesh | None, shards) -> PoseGraphData:
+    """`gn_step` eagerly, the constraint rows given already split
+    (`shards`, with `mesh`) or not (both None)."""
+    if mesh is None:  # one shard: every row, on d's device
+        mesh, shards = Mesh((d.submap_q.device,)), [{f: getattr(d, f) for f in _C_FIELDS}]
+    reps = _mesh.to_each({f: getattr(d, f) for f in _REPLICATED}, mesh)
+    out = [spa_rows({**rows, **rep}, fix_first_submap, inter_huber_scale) for rows, rep in zip(shards, reps)]
+    kw = dict(ff_huber_scale=ff_huber_scale, blocks=blocks)
+    carry = cg_start(d, _mesh.to_first([part for _, part in out], mesh), fix_first_submap=fix_first_submap, **kw)
+    for _ in range(cg_iterations):
+        directions = _mesh.to_each(carry.p[:2], mesh)
+        partials = [spa_jtj(rows, *v) for (rows, _), v in zip(out, directions)]
+        carry = cg_update(d, carry, _mesh.to_first(partials, mesh), **kw)
+    return pose_update(d, carry)
 
-    def __init__(self, d: PoseGraphData, submap_mask, node_mask, inter_huber_scale: float):
-        s, n = d.submap_q.shape[0], d.node_q.shape[0]
-        num_c = d.c_valid.shape[0]
-        dev = d.c_valid.device
-        self.cs, self.cn = d.c_submap.long(), d.c_node.long()
-        self.by_submap, self.by_node = segment_plan(self.cs, s), segment_plan(self.cn, n)
-        ds_rows = torch.zeros(num_c, 6, device=dev).requires_grad_()
-        dn_rows = torch.zeros(num_c, 6, device=dev).requires_grad_()
-        with torch.enable_grad():
-            r_spa = _spa_residuals(d, ds_rows * submap_mask[self.cs], dn_rows * node_mask[self.cn],
-                                   inter_huber_scale)
-            rows = [torch.autograd.grad(r_spa[:, k].sum(), (ds_rows, dn_rows), retain_graph=k < 5)
-                    for k in range(6)]
-        self.r = r_spa.detach()
-        self.j_s = torch.stack([g[0] for g in rows], 1)
-        self.j_n = torch.stack([g[1] for g in rows], 1)
+
+def _free_masks(d, fix_first_submap: bool):
+    """(S, 1) and (N, 1) masks, in d's float type, of the submaps and nodes
+    a step may move."""
+    free_submap = d.submap_valid & ~d.submap_fixed
+    if fix_first_submap:
+        free_submap = free_submap & (torch.arange(free_submap.shape[0], device=free_submap.device) != 0)
+    dtype = d.submap_q.dtype
+    return free_submap[:, None].to(dtype), (d.node_valid & ~d.node_fixed)[:, None].to(dtype)
+
+
+class SpaRows(NamedTuple):
+    """One shard's SPA rows at the current poses: the two Jacobian block
+    columns j_s, j_n (C, 6, 6), the rows' submap and node ids, and the
+    segment plans of those ids (`ops/segment.py`). Every row touches one
+    submap and one node."""
+
+    j_s: torch.Tensor
+    j_n: torch.Tensor
+    cs: torch.Tensor
+    cn: torch.Tensor
+    submap_order: torch.Tensor
+    submap_lengths: torch.Tensor
+    node_order: torch.Tensor
+    node_lengths: torch.Tensor
+
+    def _plans(self):
+        return (SegmentPlan(self.submap_order, self.submap_lengths, self.submap_lengths.shape[0] - 1),
+                SegmentPlan(self.node_order, self.node_lengths, self.node_lengths.shape[0] - 1))
 
     def jt(self, u):
         """J^T u of the rows for row values u (C, 6): (submap, node) sums."""
-        return (segment_sum(torch.einsum("cij,ci->cj", self.j_s, u), self.by_submap),
-                segment_sum(torch.einsum("cij,ci->cj", self.j_n, u), self.by_node))
+        by_submap, by_node = self._plans()
+        return (segment_sum(torch.einsum("cij,ci->cj", self.j_s, u), by_submap),
+                segment_sum(torch.einsum("cij,ci->cj", self.j_n, u), by_node))
 
     def jtj(self, v_s, v_n):
         """J^T J v for the submap and node parts of v."""
@@ -308,66 +347,100 @@ class _SpaRows:
 
     def diag(self):
         """The rows' share of diag(J^T J): column sums of squares."""
-        return (segment_sum((self.j_s ** 2).sum(1), self.by_submap),
-                segment_sum((self.j_n ** 2).sum(1), self.by_node))
+        by_submap, by_node = self._plans()
+        return (segment_sum((self.j_s ** 2).sum(1), by_submap), segment_sum((self.j_n ** 2).sum(1), by_node))
 
 
-def _gn_step(d: PoseGraphData, *, cg_iterations: int, fix_first_submap: bool, ff_huber_scale: float,
-             inter_huber_scale: float, blocks, mesh: Mesh | None, shards) -> PoseGraphData:
-    """`gn_step`, the constraint rows given already split (`shards`, with
-    `mesh`) or not (both None)."""
-    s = d.submap_q.shape[0]
-    n = d.node_q.shape[0]
-    dev = d.submap_q.device
-    free_submap = d.submap_valid & ~d.submap_fixed
-    if fix_first_submap:
-        free_submap = free_submap & (torch.arange(s, device=dev) != 0)
-    submap_mask = free_submap[:, None].to(torch.float32)
-    node_mask = (d.node_valid & ~d.node_fixed)[:, None].to(torch.float32)
+def spa_rows(shard, fix_first_submap: bool, inter_huber_scale: float):
+    """Body (a) of `gn_step`, one per shard on its device, from `shard` (a
+    mapping of the `SHARD_FIELDS`: the shard's constraint rows, the
+    replicated poses and the flags of what the step may move): the shard's
+    `SpaRows` and its partial sums (gradient J^T r and Jacobi diagonal,
+    each submap then node). With per-constraint tangent copies, row k of
+    every Jacobian block is one backward pass of the k-th residuals' sum."""
+    d = SimpleNamespace(**shard)
+    submap_mask, node_mask = _free_masks(d, fix_first_submap)
+    cs, cn = d.c_submap.long(), d.c_node.long()
+    by_submap, by_node = segment_plan(cs, d.submap_q.shape[0]), segment_plan(cn, d.node_q.shape[0])
+    tangent = dict(dtype=d.submap_q.dtype, device=d.c_valid.device)
+    ds_rows = torch.zeros(cs.shape[0], 6, **tangent).requires_grad_()
+    dn_rows = torch.zeros(cs.shape[0], 6, **tangent).requires_grad_()
+    with torch.enable_grad():
+        r_spa = _spa_residuals(d, ds_rows * submap_mask[cs], dn_rows * node_mask[cn], inter_huber_scale)
+        grads = [torch.autograd.grad(r_spa[:, k].sum(), (ds_rows, dn_rows), retain_graph=k < 5)
+                 for k in range(6)]
+    rows = SpaRows(torch.stack([g[0] for g in grads], 1), torch.stack([g[1] for g in grads], 1), cs, cn,
+                   by_submap.order, by_submap.lengths, by_node.order, by_node.lengths)
+    return rows, rows.jt(r_spa.detach()) + rows.diag()
+
+
+def spa_jtj(rows: SpaRows, v_s, v_n):
+    """Body (b) of `gn_step`, one per shard on its device: the shard's
+    partial J^T J v for the direction (v_s, v_n)."""
+    return rows.jtj(v_s, v_n)
+
+
+class CgCarry(NamedTuple):
+    """The preconditioned CG between its steps, on the first device: the
+    iterate x, the residual r and the direction p (each a (submap (S, 6),
+    node (N, 6), extra (3 + 6K,)) triple, the extra part the fixed-frame
+    origin and the landmark poses), r.z, the Jacobi preconditioner (a
+    triple), and the masks (submap, node, extra) of what the step moves."""
+
+    x: tuple
+    r: tuple
+    p: tuple
+    rz: torch.Tensor
+    precond: tuple
+    masks: tuple
+
+
+def _dot(a, b):
+    return sum(torch.sum(ai * bi) for ai, bi in zip(a, b))
+
+
+def _sum_in_order(parts):
+    """Per-shard partial sums (tuples) added in shard order."""
+    total = tuple(parts[0])
+    for part in parts[1:]:
+        total = tuple(a + b for a, b in zip(total, part))
+    return total
+
+
+def _extra_linear(d: PoseGraphData, masks, ff_huber_scale: float, blocks):
+    """The node-node, fixed-frame and landmark blocks matrix-free at d's
+    poses: their residuals r0, u -> J^T u (their vjp) and the vjp of that
+    linear map, which applied to v gives J v."""
+    _, node_mask, lm_free = masks
+    zeros = functools.partial(torch.zeros, dtype=d.submap_q.dtype, device=d.submap_q.device)
+
+    def res_extra(ds, dn, de):
+        return _extra_residuals(d, dn * node_mask, de * lm_free, ff_huber_scale, blocks)
+
+    r0, vjp_fn = vjp(res_extra, zeros(d.submap_q.shape[0], 6), zeros(d.node_q.shape[0], 6),
+                     zeros(lm_free.shape[0]))
+    _, jt_vjp = vjp(vjp_fn, torch.zeros_like(r0))
+    return r0, vjp_fn, jt_vjp
+
+
+def cg_start(d: PoseGraphData, partials, *, fix_first_submap: bool, ff_huber_scale: float,
+             blocks) -> CgCarry:
+    """Body of `gn_step` on the first device that opens the CG: the shards'
+    `spa_rows` partial sums (on d's device) added in shard order, the other
+    blocks' gradient, their closed-form shares of the exact Jacobi
+    diagonal diag(J^T J) (weights^2), and the CG's start: x = 0, r = -grad,
+    p = z = M r."""
+    dtype, dev = d.submap_q.dtype, d.submap_q.device
     k_lm = d.lm_positions.shape[0]
-    extra_dim = 3 + 6 * k_lm
-    has_ff = torch.any(d.ff_valid)
     lm_pos3 = d.lm_pos_valid[:, None].expand(-1, 3).reshape(-1)
-    lm_free = torch.cat([has_ff.expand(3), lm_pos3, lm_pos3]).to(torch.float32)
-    zeros = lambda *shape: torch.zeros(*shape, dtype=torch.float32, device=dev)  # noqa: E731
-
-    def dot(a, b):
-        return sum(torch.sum(ai * bi) for ai, bi in zip(a, b))
-
-    if mesh is None:  # one shard: every row, on d's device
-        mesh, shards = Mesh((dev,)), [{f: getattr(d, f) for f in _C_FIELDS}]
-    # the poses and masks a shard's rows read, copied once per device
-    reps = _mesh.to_each(({f: getattr(d, f) for f in _REPLICATED}, submap_mask, node_mask), mesh)
-    parts = [_SpaRows(d._replace(**poses, **rows), sm, nm, inter_huber_scale)
-             for (poses, sm, nm), rows in zip(reps, shards)]
-
-    def reduce(partials):
-        return _mesh.reduce_add(partials, mesh)
-
-    def hv(v):
-        out = _mesh.to_each((v[0], v[1]), mesh)
-        return reduce([p.jtj(vs, vn) for p, (vs, vn) in zip(parts, out)]) + (zeros(extra_dim),)
-
-    grad = reduce([p.jt(p.r) for p in parts]) + (zeros(extra_dim),)
+    lm_free = torch.cat([torch.any(d.ff_valid).expand(3), lm_pos3, lm_pos3]).to(dtype)
+    masks = (*_free_masks(d, fix_first_submap), lm_free)
+    g_s, g_n, diag_s, diag_n = _sum_in_order(partials)
+    zeros = functools.partial(torch.zeros, dtype=dtype, device=dev)
+    grad = (g_s, g_n, zeros(3 + 6 * k_lm))
     if any(blocks):
-        # the other blocks matrix-free: J^T u is the vjp of their
-        # residuals, and u -> J^T u is linear, so its vjp applied to v is
-        # J v
-        def res_extra(ds, dn, de):
-            return _extra_residuals(d, dn * node_mask, de * lm_free, ff_huber_scale, blocks)
-
-        r0, vjp_fn = vjp(res_extra, zeros(s, 6), zeros(n, 6), zeros(extra_dim))
-        _, jt_vjp = vjp(vjp_fn, torch.zeros_like(r0))
+        r0, vjp_fn, _ = _extra_linear(d, masks, ff_huber_scale, blocks)
         grad = tuple(a + b for a, b in zip(grad, vjp_fn(r0)))
-        hv_spa = hv
-
-        def hv(v):
-            return tuple(a + b for a, b in zip(hv_spa(v), vjp_fn(jt_vjp(tuple(v))[0])))
-
-    # Exact Jacobi preconditioner diag(J^T J): the SPA blocks' column sums
-    # of squares; the node-node, fixed-frame and landmark rows add
-    # closed-form weights^2.
-    diag_s, diag_n = reduce([p.diag() for p in parts])
     tw2 = torch.where(d.nn_valid, d.nn_trans_weight ** 2, 0.0)
     rw2 = torch.where(d.nn_valid, d.nn_rot_weight ** 2, 0.0)
     for idx in (d.nn_first, d.nn_second):
@@ -382,26 +455,40 @@ def _gn_step(d: PoseGraphData, *, cg_iterations: int, fix_first_submap: bool, ff
     _diag_add_(diag_n, d.lm_node, slice(3, 6), lrw2 * (1.0 - a_lm) ** 2)
     _diag_add_(diag_n, d.lm_node2, slice(3, 6), lrw2 * a_lm ** 2)
     precond = (1.0 / torch.clamp(diag_s, min=1e-6), 1.0 / torch.clamp(diag_n, min=1e-6),
-               torch.ones(extra_dim, dtype=torch.float32, device=dev))
-
-    x = (zeros(s, 6), zeros(n, 6), zeros(extra_dim))
+               torch.ones(3 + 6 * k_lm, dtype=dtype, device=dev))
     r = tuple(-g for g in grad)
     z = tuple(ri * pi for ri, pi in zip(r, precond))
-    p = z
-    rz = dot(r, z)
-    for _ in range(cg_iterations):
-        hp = tuple(h + 1e-8 * pi for h, pi in zip(hv(p), p))
-        alpha = rz / torch.clamp(dot(p, hp), min=1e-12)
-        x = tuple(xi + alpha * pi for xi, pi in zip(x, p))
-        r = tuple(ri - alpha * hi for ri, hi in zip(r, hp))
-        z = tuple(ri * pi for ri, pi in zip(r, precond))
-        rz_new = dot(r, z)
-        beta = rz_new / torch.clamp(rz, min=1e-12)
-        p = tuple(zi + beta * pi for zi, pi in zip(z, p))
-        rz = rz_new
-    ds = x[0] * submap_mask
-    dn = x[1] * node_mask
-    de = x[2] * lm_free
+    return CgCarry(x=tuple(torch.zeros_like(g) for g in grad), r=r, p=z, rz=_dot(r, z), precond=precond,
+                   masks=masks)
+
+
+def cg_update(d: PoseGraphData, carry: CgCarry, partials, *, ff_huber_scale: float, blocks) -> CgCarry:
+    """Body (c) of `gn_step`, on the first device: one CG step. The shards'
+    `spa_jtj` partials (on d's device) added in shard order, the other
+    blocks' J^T J p, then the step's x, r, p and r.z."""
+    hv = _sum_in_order(partials) + (torch.zeros_like(carry.x[2]),)
+    p = carry.p
+    if any(blocks):
+        _, vjp_fn, jt_vjp = _extra_linear(d, carry.masks, ff_huber_scale, blocks)
+        hv = tuple(a + b for a, b in zip(hv, vjp_fn(jt_vjp(tuple(p))[0])))
+    hp = tuple(h + 1e-8 * pi for h, pi in zip(hv, p))
+    alpha = carry.rz / torch.clamp(_dot(p, hp), min=1e-12)
+    x = tuple(xi + alpha * pi for xi, pi in zip(carry.x, p))
+    r = tuple(ri - alpha * hi for ri, hi in zip(carry.r, hp))
+    z = tuple(ri * pi for ri, pi in zip(r, carry.precond))
+    rz = _dot(r, z)
+    beta = rz / torch.clamp(carry.rz, min=1e-12)
+    return carry._replace(x=x, r=r, p=tuple(zi + beta * pi for zi, pi in zip(z, p)), rz=rz)
+
+
+def pose_update(d: PoseGraphData, carry: CgCarry) -> PoseGraphData:
+    """Body (d) of `gn_step`, on the first device: d's submap, node and
+    landmark poses moved by the CG's iterate where the masks let them."""
+    submap_mask, node_mask, lm_free = carry.masks
+    k_lm = d.lm_positions.shape[0]
+    ds = carry.x[0] * submap_mask
+    dn = carry.x[1] * node_mask
+    de = carry.x[2] * lm_free
     return d._replace(
         submap_q=quat_normalize(quat_multiply(quat_from_axis_angle(ds[:, 3:6]), d.submap_q)),
         submap_t=d.submap_t + ds[:, 0:3],

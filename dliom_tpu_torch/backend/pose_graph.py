@@ -30,11 +30,12 @@ no node is padded in): each shard runs its own search program on its
 device, against the target submap's cached grids and pyramid copied once
 into that device's static grids, and the packed results are gathered on
 `device` before the chunk's one host read. Every shard's program is
-queued before any result is gathered. The SPA runs `optimization.solve`
-with its constraint rows split over the shards (eagerly: its host-driven
-CG loop is not captured). Decompression, projection and proposals stay
-on `device`. A pool task sets a stream of its worker thread on every
-device of the mesh and drains them all before it ends.
+queued before any result is gathered. The SPA's constraint rows are
+split over the shards, each shard's programs on its device, the partial
+sums added on the first device (`_SpaPrograms`). Decompression,
+projection and proposals stay on `device`. A pool task sets a stream of
+its worker thread on every device of the mesh and drains them all before
+it ends.
 
 Compiled programs. The JAX package jits the search's programs and the SPA
 solve; here each is a `common/graph.py::StepGraph` (on the card one eager
@@ -52,14 +53,18 @@ buffers run eagerly). The pose graph owns them, and they go with it:
     cache's entries, a chunk's packed result) is copied off it before the
     next replay is queued. A submap query's projection (`submap_query`, on
     whatever thread asks) runs eagerly and makes no program;
-  * per problem shape and blocks: one Gauss-Newton step of the SPA,
-    replayed `iterations` times, with a private pool and a lock held for a
-    whole solve: the periodic solve runs on a pool thread, the final one on
-    the caller's thread, never at once, and a solve ends with its host
-    read, so the next one, on whatever stream, starts after it.
+  * per problem shape, blocks and mesh (one path: without a mesh, a
+    single shard on `device`): the SPA's programs (`_SpaPrograms`), the
+    rows and J^T J p per shard, the CG's start, its step and the pose
+    update on the first device, ordered by stream events and replayed
+    64 x (D + 1) + D + 2 times a GN step, under a lock held for a whole
+    solve: the periodic solve runs on a pool thread, the final one on the
+    caller's thread, never at once, and a solve ends with its host read,
+    so the next one, on whatever streams, starts after it.
 The bodies (`decompress_body`, `search_body`, `project_body`,
-`propose_body`, `spa_body`) are module functions: run eagerly on fresh
-tensors, they are what the programs are held to.
+`propose_body`; the SPA's in `backend/optimization.py`) are module
+functions: run eagerly on fresh tensors, they are what the programs are
+held to (`spa_solve_eager` for the SPA).
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves, tree_map
 
 from dliom_tpu_torch.backend import fast_correlative as fc
 from dliom_tpu_torch.backend import optimization as opt
@@ -88,6 +94,7 @@ from dliom_tpu_torch.backend.submap_projection import (
     propose_2d_transform,
     proposal_to_initial_guess,
 )
+from dliom_tpu_torch.common import mesh as _mesh
 from dliom_tpu_torch.common.config import (
     ConstraintBuilderConfig,
     OptimizationProblemConfig,
@@ -316,23 +323,132 @@ def _spa_settings(op: OptimizationProblemConfig, blocks) -> dict:
                 inter_huber_scale=float(op.huber_scale) if op.use_inter_huber else 0.0, blocks=blocks)
 
 
-def spa_body(op: OptimizationProblemConfig, blocks):
-    """`body(poses, problem) -> (poses, None)`: one GN step of the SPA
-    (`optimization.gn_step`) from the poses `_POSE_FIELDS` of the state,
-    the rest of the problem from the input."""
-    kw = _spa_settings(op, blocks)
-
-    def body(poses, problem):
-        d = opt.gn_step(problem._replace(**dict(zip(_POSE_FIELDS, poses))), **kw)
-        return tuple(getattr(d, f) for f in _POSE_FIELDS), None
-    return body
-
-
 def spa_solve_eager(op: OptimizationProblemConfig, problem: opt.PoseGraphData, iterations: int, blocks,
                     mesh: Optional[Mesh] = None):
-    """`optimization.solve` with the pose graph's settings: what the SPA
-    graph's replays are held to, and the solve over a mesh."""
+    """`optimization.solve` with the pose graph's settings, eagerly: only
+    the reference that the SPA programs' replays are held to (the pose
+    graph's solve runs `_SpaPrograms`, with or without a mesh)."""
     return opt.solve(problem, iterations=iterations, mesh=mesh, **_spa_settings(op, blocks))
+
+
+def _with_poses(problem: opt.PoseGraphData, poses) -> opt.PoseGraphData:
+    return problem._replace(**dict(zip(_POSE_FIELDS, poses)))
+
+
+def _like(tree, device: torch.device):
+    """New tensors of the tree's shapes and types on `device`."""
+    return tree_map(lambda x: torch.empty_like(x, device=device), tree)
+
+
+class _SpaPrograms:
+    """The SPA solve of one problem shape and blocks over one mesh (a
+    single shard on the pose graph's device without one) as compiled
+    programs, the bodies of `optimization.gn_step` each a `StepGraph`:
+      * per shard, on its device: (a) "spa_rows" (`spa_rows`; its input,
+        the shard's constraint rows and the replicated poses and flags,
+        staged from the host in one copy per solve) and (b) "spa_jtj"
+        (`spa_jtj` of the direction in its input; its state, (a)'s rows,
+        adopted);
+      * on the first device: "spa_start" (`cg_start`), (c) "spa_cg"
+        (`cg_update`; its state, spa_start's result, adopted) and (d)
+        "spa" (`pose_update`: one step a GN step; its state, the solve's
+        poses; its input, the whole problem, staged in one copy per
+        solve). The first device's programs read the problem and the
+        poses from spa's buffers.
+    A GN step: spa's poses copied out to every (a)'s input (from the second
+    GN step on), each (a), their partials copied in, spa_start; per CG step
+    the direction copied out, each (b), their partials copied in, (c);
+    then (d). The copies between the first device and the shards are
+    ordered by stream events (`common/mesh.py::copy_out`, `copy_in`) on the
+    calling thread's current stream of each device, never by the host:
+    the devices run their shards at once, and the host reads only the
+    solve's result. Shards that share a device take the same programs and
+    events. The graphs of a device share one memory pool (a `SharedPool`):
+    one thread at a time runs a solve (under `lock`), and a solve ends with
+    its host read, so the next one, on whatever streams, starts after it."""
+
+    def __init__(self, op: OptimizationProblemConfig, blocks, mesh: Mesh):
+        kw = _spa_settings(op, blocks)
+        fix, huber = kw["fix_first_submap"], kw["inter_huber_scale"]
+        cg_kw = dict(ff_huber_scale=kw["ff_huber_scale"], blocks=blocks)
+        self.mesh, self.cg_iterations, self.lock = mesh, kw["cg_iterations"], threading.Lock()
+        pools = {d: SharedPool() for d in mesh.distinct_devices}
+        first = pools[mesh.first]
+
+        def rows_body(state, shard):
+            return state, opt.spa_rows(shard, fix, huber)
+
+        def jtj_body(rows, v):
+            return rows, opt.spa_jtj(rows, *v)
+
+        def start_body(state, partials):
+            return state, opt.cg_start(self.problem(), partials, fix_first_submap=fix, **cg_kw)
+
+        def cg_body(carry, partials):
+            return opt.cg_update(self.problem(), carry, partials, **cg_kw), None
+
+        def update_body(poses, problem):
+            d = opt.pose_update(_with_poses(problem, poses), self.start.result)
+            return tuple(getattr(d, f) for f in _POSE_FIELDS), None
+
+        self.rows = [StepGraph(rows_body, pool=pools[d], name="spa_rows") for d in mesh.devices]
+        self.jtj = [StepGraph(jtj_body, adopt=tree_leaves, pool=pools[d], name="spa_jtj") for d in mesh.devices]
+        self.start = StepGraph(start_body, pool=first, name="spa_start")
+        self.cg = StepGraph(cg_body, adopt=tree_leaves, pool=first, name="spa_cg")
+        self.update = StepGraph(update_body, pool=first, name="spa")
+
+    def graphs(self) -> List[StepGraph]:
+        return [*self.rows, *self.jtj, self.start, self.cg, self.update]
+
+    def problem(self) -> opt.PoseGraphData:
+        """The problem at the solve's current poses, on the first device (spa's buffers)."""
+        return _with_poses(self.update.inp, self.update.state)
+
+    def solve(self, problem: Dict[str, np.ndarray], iterations: int) -> opt.PoseGraphData:
+        """`iterations` GN steps from the host problem; the result is
+        `problem()`, the graphs' buffers."""
+        mesh = self.mesh
+        host = opt.PoseGraphData(**{k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in problem.items()})
+        replicated = {f: getattr(host, f) for f in opt._REPLICATED}
+        shards = [[x.numpy() for x in {**rows, **replicated}.values()]  # SHARD_FIELDS' order
+                  for rows in opt.shard_constraints(host, Mesh((torch.device("cpu"),) * mesh.size))]
+        if self.update.state is None:
+            d = opt.PoseGraphData(*(x.to(mesh.first) for x in host))
+            self.update.bind(tuple(getattr(d, f) for f in _POSE_FIELDS), d)
+            for g, dev, arrays in zip(self.rows, mesh.devices, shards):
+                g.bind((), {f: torch.from_numpy(a).to(dev) for f, a in zip(opt.SHARD_FIELDS, arrays)})
+        for g, arrays in zip(self.rows, shards):
+            g.stage_input(arrays)  # a shard's rows (padded) and the replicated fields: one copy to its device
+        self.update.stage_input(list(problem.values()))  # one copy to the first device
+        self.update.load_state(tuple(getattr(self.update.inp, f) for f in _POSE_FIELDS))
+        for it in range(iterations):
+            self._gn_step(copy_poses=it > 0)
+        return self.problem()
+
+    def _gn_step(self, copy_poses: bool) -> None:
+        mesh, first = self.mesh, self.mesh.first
+        if copy_poses:
+            _mesh.copy_out(self.update.state[:len(opt._POSES)],
+                           [[g.inp[f] for f in opt._POSES] for g in self.rows], mesh)
+        for g in self.rows:
+            g.step()
+        if self.start.state is None:
+            self.start.bind((), [_like(g.result[1], first) for g in self.rows])
+        _mesh.copy_in([g.result[1] for g in self.rows], self.start.inp, mesh)
+        self.start.step()
+        direction = self.start.result.p[:2]  # spa_cg's state: its steps rewrite it
+        for _ in range(self.cg_iterations):
+            if self.jtj[0].state is None:
+                for g, rows, dev in zip(self.jtj, self.rows, mesh.devices):
+                    g.bind(rows.result[0], _like(direction, dev))
+            _mesh.copy_out(direction, [g.inp for g in self.jtj], mesh)
+            for g in self.jtj:
+                g.step()
+            if self.cg.state is None:
+                self.cg.bind(self.start.result, [_like(g.result, first) for g in self.jtj])
+            _mesh.copy_in([g.result for g in self.jtj], self.cg.inp, mesh)
+            self.cg.step()
+        self.update.step()
 
 
 class PoseGraph:
@@ -382,7 +498,7 @@ class PoseGraph:
         self._streams: Dict[Tuple[int, torch.device], torch.cuda.Stream] = {}
         self._last_landmark_positions = None
         self._programs_by_thread: Dict[Tuple[int, torch.device], _Programs] = {}
-        self._spa_graphs: Dict[tuple, Tuple[threading.Lock, StepGraph]] = {}
+        self._spa_graphs: Dict[tuple, _SpaPrograms] = {}
         self._programs_lock = threading.Lock()
 
     def _phase(self, name: str, seconds: float) -> None:
@@ -790,14 +906,16 @@ class PoseGraph:
             for prog in self._programs_by_thread.values():
                 for key, g in prog.graphs.items():
                     out[g.name].append((key, g))
-            for key, (_, g) in self._spa_graphs.items():
-                out[g.name].append((key, g))
+            for key, programs in self._spa_graphs.items():
+                for g in programs.graphs():
+                    out[g.name].append((key, g))
         return dict(out)
 
     def graph_counts(self) -> Dict[str, Dict[str, int]]:
         """The compiled programs' steps, warm-ups, captures and replays by
-        program (decompress, the two searches, project, propose, spa),
-        summed over the threads that ran them."""
+        program (decompress, the two searches, project, propose, and the
+        SPA's spa_rows, spa_jtj, spa_start, spa_cg and spa, whose steps
+        count GN steps), summed over the threads and shards that ran them."""
         return {name: sum_counts(g for _, g in gs) for name, gs in sorted(self.programs().items())}
 
     def _global_candidates(self, from_id: int) -> List[int]:
@@ -1182,29 +1300,17 @@ class PoseGraph:
 
     def _solve(self, problem: Dict[str, np.ndarray], iterations: int, blocks) -> np.ndarray:
         """The SPA solve of the host problem: its submap, node and landmark
-        poses, flat on the host (one read). The GN-step graph of this
-        problem's shapes and blocks, its poses loaded from the staged
-        problem, replayed `iterations` times under the graph's lock. With a
-        mesh, `optimization.solve` over it, eagerly."""
-        if self.mesh is not None:
-            data = opt.PoseGraphData(**{k: self._stage_array(v, self.mesh.first) for k, v in problem.items()})
-            return self._read_poses(spa_solve_eager(self.cfg.optimization_problem, data, iterations, blocks,
-                                                    self.mesh))
-        key = ("spa", blocks) + tuple(v.shape for v in problem.values())
+        poses, flat on the host (one read). The programs of this problem's
+        shapes and blocks over the mesh (without one, a single shard on
+        `device`), `iterations` GN steps under their lock."""
+        mesh = self.mesh or Mesh((self.device,))
+        key = ("spa", blocks, mesh) + tuple(v.shape for v in problem.values())
         with self._programs_lock:
             if key not in self._spa_graphs:
-                self._spa_graphs[key] = (threading.Lock(), StepGraph(
-                    spa_body(self.cfg.optimization_problem, blocks), pool="own", name="spa"))
-            lock, g = self._spa_graphs[key]
-        with lock:
-            if g.state is None:
-                data = opt.PoseGraphData(**{k: self._stage_array(v) for k, v in problem.items()})
-                g.bind(tuple(getattr(data, f) for f in _POSE_FIELDS), data)
-            g.stage_input(list(problem.values()))  # one host-to-device copy
-            g.load_state(tuple(getattr(g.inp, f) for f in _POSE_FIELDS))
-            for _ in range(iterations):
-                g.step()
-            return self._read_poses(g.inp._replace(**dict(zip(_POSE_FIELDS, g.state))))
+                self._spa_graphs[key] = _SpaPrograms(self.cfg.optimization_problem, blocks, mesh)
+            programs = self._spa_graphs[key]
+        with programs.lock:
+            return self._read_poses(programs.solve(problem, iterations))
 
     def _read_poses(self, d: opt.PoseGraphData) -> np.ndarray:
         return self._host(torch.cat([d.submap_q.reshape(-1), d.submap_t.reshape(-1), d.node_q.reshape(-1),

@@ -15,11 +15,14 @@ it out, each piece a copy on its shard's device; `gather` concatenates the
 pieces of per-shard trees on one device, in shard order, as the JAX
 package's global arrays read.
 
-Cross-device sums (`reduce_add`) go onto the mesh's first device: each
-partial is copied there and they are added in shard order, so a mesh that
-repeats one device adds in the same order as one of distinct cards. Peer
-copies order themselves against both devices' current streams; nothing
-here synchronizes a device.
+Cross-device sums go onto the mesh's first device: each partial is copied
+there (`to_first`) and the sum's body adds them in shard order, so a mesh
+that repeats one device adds in the same order as one of distinct cards.
+Eager copies (`to_each`, `to_first`) make new tensors, which PyTorch
+orders against both devices' current streams. Compiled programs copy into
+static tensors between their replays (`copy_out`, `copy_in`), ordered by
+CUDA events on the calling thread's current stream of each device.
+Nothing here synchronizes a device or waits on the host.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 
 def indexed(device) -> torch.device:
@@ -151,14 +154,49 @@ def to_each(tensors, mesh: Mesh) -> list:
     return [by_device[d] for d in mesh.devices]
 
 
-def reduce_add(parts: Sequence, mesh: Mesh):
-    """The sum of per-shard trees of tensors on `mesh.first`: each part
-    copied there and added in shard order. One part is returned as it is."""
-    total = None
-    for part in parts:
-        leaves, spec = tree_flatten(part)
-        if total is None:
-            total = [x.to(mesh.first) for x in leaves]
-        else:
-            total = [a + b.to(mesh.first) for a, b in zip(total, leaves)]
-    return tree_unflatten(total, spec)
+def to_first(parts: Sequence, mesh: Mesh) -> list:
+    """Per-shard trees of tensors each copied to `mesh.first` (a tensor
+    already there is itself), in shard order."""
+    return [tree_map(lambda x: x.to(mesh.first), part) for part in parts]
+
+
+def _recorded(device: torch.device):
+    """A CUDA event recorded on `device`'s current stream; None off the card."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _wait(device: torch.device, event) -> None:
+    if event is not None:
+        torch.cuda.current_stream(device).wait_event(event)
+
+
+def copy_out(src, dsts: Sequence, mesh: Mesh) -> None:
+    """Copy the tree `src` (on `mesh.first`) into every shard's tree of
+    static tensors `dsts[k]` (on its device): the first device's current
+    stream records an event after what it has queued, and each shard's
+    current stream waits on it before its copy. (PyTorch runs a copy
+    between two cards on the source's current stream, after both streams'
+    queued work; the event orders the shards' streams the same way where
+    they share a card.)"""
+    ready = _recorded(mesh.first)
+    src = tree_leaves(src)
+    for dev, dst in zip(mesh.devices, dsts):
+        _wait(dev, ready)
+        for s, x in zip(tree_leaves(dst), src):
+            s.copy_(x)
+
+
+def copy_in(srcs: Sequence, dsts: Sequence, mesh: Mesh) -> None:
+    """Copy every shard's tree `srcs[k]` (on its device) into the tree of
+    static tensors `dsts[k]` on `mesh.first`: each shard's current stream
+    records an event after what it has queued, and the first device's
+    current stream waits on all of them before the copies."""
+    for event in [_recorded(dev) for dev in mesh.devices]:
+        _wait(mesh.first, event)
+    for src, dst in zip(srcs, dsts):
+        for s, x in zip(tree_leaves(dst), tree_leaves(src)):
+            s.copy_(x)

@@ -198,12 +198,17 @@ def run_lio_chunk(state: LioState, scans: Sequence[LioScanInput],
     return state, results
 
 
-def bank_leaves(state: LioState) -> List[torch.Tensor]:
-    """The grid banks of a (one- or B-lane) state: the tensors a step
-    updates in place, which a compiled step keeps rather than copies."""
-    sm = state.frontend.submaps
+def frontend_bank_leaves(state: FrontendState) -> List[torch.Tensor]:
+    """The grid banks of a (one- or B-lane) frontend state: the tensors a
+    step updates in place, which a compiled step keeps rather than copies."""
+    sm = state.submaps
     leaves = tree_flatten([sm.high_values, sm.low_values, sm.high_brick, sm.low_brick])[0]
     return [x for x in leaves if x is not None]
+
+
+def bank_leaves(state: LioState) -> List[torch.Tensor]:
+    """`frontend_bank_leaves` of a LIO state's frontend."""
+    return frontend_bank_leaves(state.frontend)
 
 
 def stack_results(results: Sequence):

@@ -35,13 +35,13 @@ holds every lane's touched groups: a run without drops scales them by B.
 Sharding over a mesh (:311-411, `common/mesh.py`): each of the D shards
 owns batch/D sequences with their own flat banks on its own device, and
 their lanes restart at 0 on every shard (`make_sharded_lio_state`), as in
-the JAX package. `sharded_lio_step` holds one compiled batched step per
-shard; a call queues every shard's input copy and step from the one
-calling thread (forward-mode AD is process-global) with no host wait in
-between, so the devices run at once. The hot loop has no cross-device
-traffic. State and results are lists of per-shard trees; `gather` reads
-them as the JAX package's global arrays (a dense grouped bank keeps one
-padding group per shard).
+the JAX package. `sharded_lio_step` and the frontend's `sharded_step`
+hold one compiled batched step per shard; a call queues every shard's
+input copy and step from the one calling thread (forward-mode AD is
+process-global) with no host wait in between, so the devices run at
+once. The hot loop has no cross-device traffic. State and results are
+lists of per-shard trees; `gather` reads them as the JAX package's global
+arrays (a dense grouped bank keeps one padding group per shard).
 """
 
 from __future__ import annotations
@@ -66,6 +66,7 @@ from dliom_tpu_torch.frontend.lio import (
     _window_gravity,
     bank_leaves,
     chunk_body,
+    frontend_bank_leaves,
     fuse_window,
     imu_carry,
     make_lio_state,
@@ -414,10 +415,15 @@ def make_sharded_lio_state(cfg: TrajectoryBuilderConfig, batch: int, mesh: Mesh)
 
 
 class ShardedStep:
-    """One step per shard of a mesh, called as `(states, inputs) ->
-    (states, results)` over lists of per-shard trees; an input that is one
-    batched tree (not a list) is split over the mesh first. Each call runs the shards in
-    shard order from the calling thread and waits for none of them."""
+    """One compiled step per shard of a mesh (a `StepGraph` on the shard's
+    device), called as `(states, inputs) -> (states, results)` over lists
+    of per-shard trees; an input that is one batched tree (not a list) is
+    split over the mesh first. Each call runs the shards in shard order
+    from the calling thread and waits for none of them. The states and
+    results it returns are the graphs' buffers: shard k's next step
+    rewrites its state in place (the banks, adopted, and every other leaf)
+    and its result, so a caller that keeps any of them across a step
+    clones it first."""
 
     def __init__(self, steps, mesh: Mesh):
         self.steps = list(steps)
@@ -433,7 +439,7 @@ class ShardedStep:
 
     def counts(self):
         """The shards' StepGraph counts, summed (`common/graph.py`)."""
-        return sum_counts(s for s in self.steps if isinstance(s, StepGraph))
+        return sum_counts(self.steps)
 
 
 def sharded_lio_step(cfg: TrajectoryBuilderConfig, batch: int, mesh: Mesh) -> ShardedStep:
@@ -446,6 +452,12 @@ def sharded_lio_step(cfg: TrajectoryBuilderConfig, batch: int, mesh: Mesh) -> Sh
 
 
 def sharded_step(cfg: TrajectoryBuilderConfig, mesh: Mesh) -> ShardedStep:
-    """The frontend's `batched_step` on every shard of the mesh, over
-    per-shard states (`shard_over_mesh(make_batched_state(...), mesh)`)."""
-    return ShardedStep((batched_step(cfg) for _ in mesh.devices), mesh)
+    """The compiled frontend `batched_step` on every shard of the mesh (one
+    CUDA graph per shard on the card; the JAX package jits it,
+    dliom_tpu/parallel/batch.py:396-411), over per-shard states
+    (`shard_over_mesh(make_batched_state(...), mesh)`, or
+    `make_batched_state` of batch/D lanes per shard where a dense grouped
+    bank, which ends in one padding group, does not split), the banks
+    updated in place on their shard's device. State and results of a shard are its
+    graph's buffers, rewritten by its next step."""
+    return ShardedStep((StepGraph(batched_step(cfg), adopt=frontend_bank_leaves) for _ in mesh.devices), mesh)

@@ -15,9 +15,9 @@ the same static buffers and copies that a CUDA graph replays on the card:
     optimization's solve gives the eager run's constraints and poses bit
     for bit; so does tools/torch_loop_recall.py's first trial, its
     proposals included;
-(c) k replays of the one-GN-step SPA graph equal `solve(iterations=k)`
-    bit for bit, with and without the node-node, fixed-frame and landmark
-    blocks;
+(c) the SPA's programs (backend/pose_graph.py::_SpaPrograms, one shard)
+    solving k GN steps equal `solve(iterations=k)` bit for bit, with and
+    without the node-node, fixed-frame and landmark blocks;
 (d) the compiled pose graph against the JAX `PoseGraph` on
     tests/test_torch_pose_graph.py's image-proposal scenario and tolerances (the same
     constraint set, INTER relative poses within 0.05 m / 0.02, final poses
@@ -46,7 +46,6 @@ from dliom_tpu.transform.rigid import Rigid3 as JRigid3
 from dliom_tpu_torch.backend import optimization as TO
 from dliom_tpu_torch.backend import pose_graph as TPG
 from dliom_tpu_torch.backend.precomputation import Pyramid
-from dliom_tpu_torch.common.graph import StepGraph
 from dliom_tpu_torch.imu.dynamic_initializer import DynamicInitializer
 from dliom_tpu_torch.interop import to_torch
 from dliom_tpu_torch.io.synthetic import SyntheticWorld
@@ -60,7 +59,8 @@ CPU = torch.device("cpu")
 CHUNK = 4  # max_nodes_per_search_dispatch's default
 POINTS = 64  # of each node's 1200 per cloud in the search cases: a full-submap search of all
 # 1200 takes ~3 s on one CPU thread
-PROGRAMS = ("decompress", "project", "propose", "search_initial", "spa")
+SPA_PROGRAMS = ("spa_rows", "spa_jtj", "spa_start", "spa_cg", "spa")  # backend/pose_graph.py::_SpaPrograms
+PROGRAMS = ("decompress", "project", "propose", "search_initial") + SPA_PROGRAMS
 
 
 class EagerPoseGraph(TPG.PoseGraph):
@@ -322,21 +322,24 @@ def _spa_problem(all_blocks):
 
 @pytest.mark.parametrize("all_blocks", [False, True], ids=["spa_rows", "all_blocks"])
 def test_spa_graph_replays_equal_solve(all_blocks):
+    """The SPA's programs through `PoseGraph._solve` (one shard on the
+    CPU): solves of k = 1 and 3 GN steps, one program set replayed for
+    both, each equal to `solve(iterations=k)` bit for bit."""
     d = _spa_problem(all_blocks)
     blocks = TO.blocks_of(d)
     assert blocks == (all_blocks,) * 3
-    op = dataclasses.replace(tpg_test._port_config().pose_graph.optimization_problem, huber_scale=1.0)
-    g = StepGraph(TPG.spa_body(op, blocks), pool="own", name="spa")
-    poses = tuple(getattr(d, f) for f in TPG._POSE_FIELDS)
-    g.bind(poses, d)
-    g.load_input(d)
-    g.load_state(tuple(getattr(g.inp, f) for f in TPG._POSE_FIELDS))
-    for k in range(1, 4):
-        g.step()
+    cfg = tpg_test._port_config()
+    op = dataclasses.replace(cfg.pose_graph.optimization_problem, huber_scale=1.0)
+    pg = TPG.PoseGraph(dataclasses.replace(cfg.pose_graph, optimization_problem=op), cfg.trajectory_builder,
+                       device="cpu")
+    problem = {k: v.numpy() for k, v in d._asdict().items()}
+    for k in (1, 3):
+        got = pg._solve(problem, k, blocks)
         want = TPG.spa_solve_eager(op, d, k, blocks)
-        for f, x in zip(TPG._POSE_FIELDS, g.state):
-            assert torch.equal(x, getattr(want, f)), (k, f)
-    assert not torch.equal(g.state[3], d.node_t)  # the solve moved the nodes
+        np.testing.assert_array_equal(got, pg._read_poses(want), err_msg=f"{k} GN steps")
+    assert not torch.equal(want.node_t, d.node_t)  # the solve moved the nodes
+    assert [len(gs) for gs in pg.programs().values()] == [1] * len(SPA_PROGRAMS)
+    assert pg.graph_counts()["spa"]["steps"] == 4 and pg.graph_counts()["spa_cg"]["steps"] == 4 * 64
 
 
 # (d) parity with JAX
@@ -347,7 +350,7 @@ def test_compiled_pose_graph_matches_jax(graphs):
     through the compiled programs."""
     pg = graphs["compiled"]
     counts = pg.graph_counts()
-    assert all(counts[p]["steps"] >= 1 for p in PROGRAMS if p != "spa"), counts
+    assert all(counts[p]["steps"] >= 1 for p in PROGRAMS if p not in SPA_PROGRAMS), counts
     tpg_test._compare(graphs["jax"], pg)
     assert pg.graph_counts()["spa"]["steps"] >= 1
 

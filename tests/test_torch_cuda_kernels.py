@@ -994,3 +994,170 @@ def test_sharded_lio_step_holds_each_shard(cuda_device):
                                        want.scan.local_pose.translation, atol=2e-3, rtol=0)
     assert step.counts() == {"steps": 4 * mesh.size, "warmups": mesh.size, "captures": mesh.size,
                              "replays": 3 * mesh.size}
+
+
+# ----- the SPA's programs and the frontend's sharded step over a mesh -----
+
+
+def _spa_programs_case(device, mesh):
+    """A pose graph over `mesh` on `device` and `_spa_case`'s problem, on the
+    card and as the host arrays `PoseGraph._solve` takes."""
+    from dliom_tpu_torch.backend import optimization as opt
+    from dliom_tpu_torch.backend.pose_graph import PoseGraph
+
+    cfg = load_config("basic")
+    d = _spa_case(device)
+    problem = {k: v.cpu().numpy() for k, v in d._asdict().items()}
+    return PoseGraph(cfg.pose_graph, cfg.trajectory_builder, device=device, mesh=mesh), d, problem, opt.blocks_of(d)
+
+
+def _compiled_solves_equal_eager(pg, d, problem, blocks, mesh, iterations=3):
+    """Two solves through `PoseGraph._solve` (the first warms up and
+    captures every SPA program, the second replays them) against the eager
+    solve over the same mesh, bit for bit."""
+    from dliom_tpu_torch.backend.pose_graph import spa_solve_eager
+    from dliom_tpu_torch.common import graph as cg
+
+    with cg.cusolver():
+        want = pg._read_poses(spa_solve_eager(pg.cfg.optimization_problem, d, iterations, blocks, mesh))
+    for k in range(2):
+        got = pg._solve(problem, iterations, blocks)
+        assert np.array_equal(got, want), (k, float(np.abs(got - want).max()))
+    counts = pg.graph_counts()
+    shards = 1 if mesh is None else mesh.size
+    assert counts["spa"] == {"steps": 2 * iterations, "warmups": 1, "captures": 1, "replays": 2 * iterations - 1}
+    assert counts["spa_jtj"]["captures"] == shards and counts["spa_jtj"]["steps"] == 2 * iterations * 64 * shards
+    assert not np.array_equal(want, pg._read_poses(d))  # the solve moved the poses
+
+
+def test_compiled_sharded_solve_equals_eager(cuda_device):
+    """The SPA's programs (backend/pose_graph.py::_SpaPrograms) over 4
+    shards on one card, and as a single shard without a mesh: each equal
+    to the eager solve of the same mesh bit for bit."""
+    from dliom_tpu_torch.common.mesh import Mesh, indexed
+
+    dev = indexed(cuda_device)
+    for mesh in (Mesh((dev,) * 4), None):
+        _compiled_solves_equal_eager(*_spa_programs_case(dev, mesh), mesh)
+
+
+def test_compiled_sharded_solve_on_two_cards(second_card):
+    """The SPA's programs over cuda:0 and cuda:1 (the copies between the
+    cards ordered by stream events) equal the eager solve over them."""
+    from dliom_tpu_torch.common.mesh import Mesh
+
+    mesh = Mesh((torch.device("cuda", 0), second_card))
+    pg, d, problem, blocks = _spa_programs_case(torch.device("cuda", 0), mesh)
+    _compiled_solves_equal_eager(pg, d, problem, blocks, mesh)
+    assert {g.device for gs in pg.programs().values() for _, g in gs} == set(mesh.devices)
+
+
+def test_sharded_solve_on_a_pool_thread_beside_captures(cuda_device):
+    """A sharded SPA solve (2 shards on one card) runs as a pose-graph pool
+    task (`PoseGraph._device_task`: its thread's own streams), its
+    programs' warm-ups and captures and then their replays, while the main
+    thread captures tools/torch_capture_hazards.py's body again and again
+    through `common/graph.py::capture`: no capture is lost, every main
+    thread graph replays to the eager body's result, and both solves
+    equal the eager solve."""
+    import sys
+    import threading
+
+    from dliom_tpu_torch.backend.pose_graph import spa_solve_eager
+    from dliom_tpu_torch.common import graph as cg
+    from dliom_tpu_torch.common.mesh import Mesh, indexed
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import torch_capture_hazards as hazards
+
+    dev = indexed(cuda_device)
+    mesh = Mesh((dev,) * 2)
+    pg, d, problem, blocks = _spa_programs_case(dev, mesh)
+    out, done = {}, threading.Event()
+
+    def solves():
+        out["poses"] = [pg._solve(problem, 2, blocks) for _ in range(2)]
+
+    task = pg._device_task(solves)
+
+    def run():
+        try:
+            task()
+        except BaseException as e:  # reported on the main thread
+            out["error"] = e
+        finally:
+            done.set()
+
+    x = torch.ones(1024, device=dev)
+    want_body = hazards._body(x)
+    torch.cuda.current_stream(dev).synchronize()
+    worker = threading.Thread(target=run)
+    worker.start()
+    graphs, overlap = [], 0
+    while not done.is_set() or len(graphs) < 3:
+        overlap += not done.is_set()
+        g, box = torch.cuda.CUDAGraph(), {}
+        cg.capture(g, (), dev, lambda: box.setdefault("y", hazards._body(x)))
+        graphs.append((g, box["y"]))
+    worker.join()
+    assert "error" not in out, out.get("error")
+    assert overlap > 0
+    for g, y in graphs:
+        g.replay()
+        torch.cuda.current_stream(dev).synchronize()
+        assert torch.equal(y, want_body)
+    with cg.cusolver():
+        want = pg._read_poses(spa_solve_eager(pg.cfg.optimization_problem, d, 2, blocks, mesh))
+    for poses in out["poses"]:
+        assert np.array_equal(poses, want)
+    assert pg.graph_counts()["spa"]["captures"] == 1
+
+
+def test_compiled_sharded_frontend_step_holds_each_shard(cuda_device):
+    """The frontend's compiled `sharded_step` over the cards present (up to
+    4; two shards on cuda:0 where there is one card), 2 lanes a shard, 4
+    steps: every shard's step (the warm-up and capture, then replays)
+    against the eager `batched_step` from the same pre-step state (integer
+    state and flags bit for bit, poses within 2e-3); K1 2 launches a shard
+    a step, counted through the replays, and no K2."""
+    from torch.utils._pytree import tree_leaves
+
+    from dliom_tpu_torch.common import graph as cg
+    from dliom_tpu_torch.common.mesh import Mesh, make_mesh
+    from dliom_tpu_torch.frontend.local_trajectory_builder import ScanInput
+    from dliom_tpu_torch.parallel import batch as TBatch
+    from dliom_tpu_torch.transform.rigid import Rigid3
+
+    n = torch.cuda.device_count()
+    mesh = make_mesh(min(4, n)) if n > 1 else Mesh((cuda_device,) * 2)
+    cfg, scan, _ = _small_step_case(cuda_device)
+    states = [TBatch.make_batched_state(cfg, 2, dev) for dev in mesh.devices]
+    step = TBatch.sharded_step(cfg, mesh)
+    body = TBatch.batched_step(cfg)
+
+    def lanes(i, dev):
+        one = scan(i)
+        two = lambda x: x.to(dev).expand((2,) + x.shape).clone()  # noqa: E731
+        return ScanInput(time=two(one.time), points=two(one.points), times=two(one.times), mask=two(one.mask),
+                         relative_prediction=Rigid3.identity((2,), device=dev))
+
+    for i in range(4):
+        inputs = [lanes(i, dev) for dev in mesh.devices]
+        pre = [_clone(s) for s in states]
+        before = cg.launch_counts()
+        states, results = step(states, inputs)
+        for dev in mesh.distinct_devices:
+            torch.cuda.current_stream(dev).synchronize()
+        launched = {k: v - before[k] for k, v in cg.launch_counts().items()}
+        assert launched == {"dliom_tpu_torch.ops.grouped_apply.LAUNCHES": 2 * mesh.size,
+                            "dliom_tpu_torch.ops.grouped_apply.DENSE_LAUNCHES": 0,
+                            "dliom_tpu_torch.imu.affine_chain.LAUNCHES": 0}, (i, launched)
+        for k, dev in enumerate(mesh.devices):
+            with cg.cusolver(), torch.cuda.device(dev):
+                want_state, want = body(pre[k], inputs[k])
+            for x, y in zip(tree_leaves((states[k], results[k])), tree_leaves((want_state, want))):
+                assert x is None or (x.device == dev and (x.dtype.is_floating_point or torch.equal(x, y))), (i, k)
+            torch.testing.assert_close(results[k].local_pose.translation, want.local_pose.translation,
+                                       atol=2e-3, rtol=0)
+    assert step.counts() == {"steps": 4 * mesh.size, "warmups": mesh.size, "captures": mesh.size,
+                             "replays": 3 * mesh.size}

@@ -76,3 +76,38 @@ def test_tool_imports_no_jax():
             "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'dliom_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, cwd=root)
     assert out.stdout.strip() == "[]"
+
+
+# The late lane of tests/test_torch_mesh.py::test_batched_presearch_with_a_late_lane
+# (ROADMAP §3): at its first scan, which has no points,
+# the port's step and JAX's step, each from JAX's fresh state, part by
+# 4.4e-4 m. Every stage before the sliding window's Gauss-Newton agrees to
+# f32 rounding (the pre-search takes the lattice's corner candidate in both,
+# the match leaves it, the window's inputs agree field by field); the GN,
+# whose Jacobi-scaled normal equations have a condition number ~3.3e5 at
+# that scan (the observation 0.35 m from the IMU prediction), then rounds
+# apart in each package's f32 solve.
+PRE_GN_RTOL = 1e-6  # each float field of the window before its GN, over the larger of its largest magnitude and 1
+# (m, m/s, rad): the key's predicted position is ~1e-5 m, left by terms of ~4e-2 m that cancel
+F32_SOLVE_SLACK = 2.0  # an f32 GN's departure from the f64 GN, in units of its solve error times the movement
+
+
+def test_late_lane_parts_in_the_window_solve():
+    """At the late lane's empty first scan, from one state
+    (tests/torch_lm_parity.py::late_lane_window): (1) the window the GN
+    starts from is the port's and JAX's alike, integer fields equal and
+    float fields within PRE_GN_RTOL; (2) from that window the port's f32
+    GN and JAX's f32 GN each land within F32_SOLVE_SLACK x (the f32
+    solve's relative error against a float64 solve of the same system) x
+    (the movement) of a float64 GN, positions compared, the system's
+    condition number over 1e5; so the two f32 results part by no more
+    than both bounds, and their gap (over 1e-4 m) is that rounding: the
+    packages part in an ill-conditioned f32 solve, not in a stage of the
+    port."""
+    out = lp.late_lane_window()
+    assert out["pre_gn_ints_equal"] and out["trace_equals_optimize"]
+    assert max(out["pre_gn"].values()) <= PRE_GN_RTOL, out["pre_gn"]
+    bound = F32_SOLVE_SLACK * max(out["solve_err"]) * out["moved"]
+    assert min(out["cond"]) > 1e5, out["cond"]
+    assert max(out["error"].values()) <= bound, (out, bound)
+    assert 1e-4 < out["gap"] <= 2 * bound, (out, bound)

@@ -14,20 +14,28 @@ conftest's 8 virtual CPU devices.
     same device), and against JAX's `sharded_lio_step`: the gathered
     initial state equal, integer banks bit for bit, poses and window poses
     within POSE_ATOL;
-(c) `sharded_step` (the frontend) against JAX's at tests/test_parallel.py
-    :95-112's config;
+(c) the compiled `sharded_step` (the frontend; a `StepGraph` per shard)
+    against JAX's at tests/test_parallel.py:95-112's config over two steps,
+    and against the eager per-shard `batched_step` bit for bit;
 (d) `solve(mesh=)` on tests/test_optimization.py::_build_problem (seed 3,
     6 GN steps of 48 CG steps) at D = 4 and at D = 3, which does not divide
-    the 1024 constraint rows: within 1e-5 of the port's unsharded solve
-    (the order of the partial sums only), also with the rows permuted so
-    that every shard holds valid ones, and within 5e-5 of JAX's sharded
-    solve (tests/test_torch_backend.py's SPA tolerance);
+    the 1024 constraint rows: within `solve_atol` (the order of the partial
+    sums only; relative to the solve's movement) of the port's unsharded
+    solve, also with the rows permuted so that every shard holds valid
+    ones, each f32 solve within half of it of a float64 solve, and within
+    5e-5 of JAX's sharded solve (tests/test_torch_backend.py's SPA
+    tolerance); the SPA's compiled programs over the mesh
+    (backend/pose_graph.py::_SpaPrograms, through `PoseGraph._solve`) on
+    the same problem at D = 4 and 3, rows contiguous or spread: equal to
+    the eager `solve(mesh=)` bit for bit, and each program free of ops a
+    capture refuses;
 (e) `PoseGraph(mesh=)` on tests/test_pose_graph.py:141-200's scenario:
     every search chunk's found flag, score and pose bit for bit against the
     unsharded port's, the INTER to submap 0 found within 0.3 m of the
     truth, the constraints against JAX's `PoseGraph(mesh=)`
     (tests/test_torch_pose_graph.py's tolerances), the final poses over the
-    mesh within 1e-5 of the unsharded port's; one chunk of 5 nodes
+    mesh (its compiled SPA programs) within `solve_atol` of the unsharded
+    port's; one chunk of 5 nodes
     split 2 / 2 / 1 / 0: found and score equal to the unsharded chunk's,
     the refined poses within 1e-6 (the batched GN refinement of a piece
     rounds apart from that of the whole chunk); `MapBuilder(mesh=)` hands
@@ -45,7 +53,11 @@ conftest's 8 virtual CPU devices.
     lattice's corner candidate; the sliding window then pulls the pose back
     through its ill-conditioned f32 solve, and the packages part: 4.4e-4 m
     at that scan, 8.4e-4 m one scan on, 5.0e-2 m two scans on, in the
-    single-lane `lio_step` as much as in the batched one (ROADMAP §3).
+    single-lane `lio_step` as much as in the batched one. Settled as f32
+    rounding (ROADMAP §3): tests/test_torch_lm_trace.py::
+    test_late_lane_parts_in_the_window_solve holds every stage before the
+    window's GN equal to JAX's and each package's f32 GN within its own
+    rounding of a float64 GN.
 """
 
 import warnings
@@ -56,7 +68,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import Mesh as JMesh
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
 
 from dliom_tpu.backend import optimization as JO
 from dliom_tpu.backend.pose_graph import PoseGraph as JPoseGraph
@@ -83,16 +95,27 @@ from dliom_tpu_torch.imu.preintegration import NavState
 from test_torch_batch import LANE_ATOL, POSE_ATOL, _assert_banks_equal, _lane, _overrides, _scans
 from test_torch_pose_graph import _port_config, _scenario
 import torch_threads  # noqa: F401  (one torch thread per test process)
+from torch_capture_audit import audited
 
 CPU = torch.device("cpu")
 D = 4
 MESH = Mesh((CPU,) * D)
 G = 9.80511
-SOLVE_ATOL = 1e-5  # sharded against unsharded: the order of the partial sums only
+# Sharded against unsharded (the order of the partial sums only): chip_smoke.py::spa_tolerance's form,
+# SOLVE_RTOL times the solve's largest node movement plus SOLVE_ULPS float32 spacings of the largest
+# pose component, derived as there from a float64 solve of the same problem: on (d)'s problem every
+# f32 solve (unsharded, sharded at D = 4 and 3, rows contiguous or spread) came within 1.62e-6 of it
+# at a 0.92 m movement and poses up to 13.2 m (1.7 spacings), so r <= 1.8e-6 and k = 2. Two f32
+# solves part by at most 2 (r moved + k spacing):
+# SOLVE_RTOL >= 2 r, and the spacings, which dominate here, give (d) a gate of 7.5e-6 against the
+# 9.5e-7 measured; (d) checks the premise every run.
+SOLVE_RTOL = 4e-6
+SOLVE_ULPS = 4
 JAX_SOLVE_ATOL = 5e-5  # tests/test_torch_backend.py::test_spa_solve_matches
 PRESEARCH_SCANS = 3  # (f): scans of the batched step with the pre-search
 PIECE_POSE_ATOL = 1e-6  # a chunk's refined poses, its nodes split over shards against one batch
-LATE_LANE_PARTS = 2  # (f): the scan at which a lane with an empty first scan parts from JAX (docstring)
+LATE_LANE_PARTS = 2  # (f): the scan at which a lane with an empty first scan parts from JAX by f32 rounding
+# of its window's GN (docstring; tests/test_torch_lm_trace.py::test_late_lane_parts_in_the_window_solve)
 
 
 def _jax_mesh(n, axis="seq"):
@@ -205,7 +228,7 @@ def test_sharded_lio_step_matches_shards_and_jax():
 # ----- (c) -----
 
 
-def test_sharded_frontend_step_matches_jax():
+def _frontend_step_case():
     batch = 2 * D
     j_cfg = _frontend_cfg_j()
     t_cfg = t_load_config("basic", {"trajectory_builder": {
@@ -218,26 +241,58 @@ def test_sharded_frontend_step_matches_jax():
     }}).trajectory_builder
     offsets = [np.array([0.05 * b, 0.0, 0.0]) for b in range(batch)]
     jscan = _scan_batch(j_cfg, batch, offsets)
-    jmesh = _jax_mesh(D)
-    jstate, jres = JB.sharded_step(j_cfg, jmesh)(
-        JB.shard_over_mesh(JB.make_batched_state(j_cfg, batch), jmesh), JB.shard_over_mesh(jscan, jmesh))
+    # the same scan again 0.3 s later: the second step reads the first one's buffers
+    jscans = [jscan, jscan._replace(time=jscan.time + 0.3)]
+    return batch, j_cfg, t_cfg, jscans
+
+
+def _port_scan(jscan):
     host = jax.tree.map(np.array, jscan)  # writable copies
-    tscan = ScanInput(time=torch.from_numpy(host.time), points=torch.from_numpy(host.points),
-                      times=torch.from_numpy(host.times), mask=torch.from_numpy(host.mask),
-                      relative_prediction=Rigid3(torch.from_numpy(host.relative_prediction.rotation),
-                                                 torch.from_numpy(host.relative_prediction.translation)))
+    return ScanInput(time=torch.from_numpy(host.time), points=torch.from_numpy(host.points),
+                     times=torch.from_numpy(host.times), mask=torch.from_numpy(host.mask),
+                     relative_prediction=Rigid3(torch.from_numpy(host.relative_prediction.rotation),
+                                                torch.from_numpy(host.relative_prediction.translation)))
+
+
+def test_sharded_frontend_step_matches_jax(monkeypatch):
+    """The compiled `sharded_step` (one `StepGraph` per shard) over two
+    steps: each shard's state and results equal the eager `batched_step`
+    from copies of the same pre-step state (integer state bit for bit),
+    the gathered poses within POSE_ATOL of JAX's `sharded_step` and the
+    banks bit for bit; then one more step of a shard's graph issues no
+    op a capture refuses (tests/torch_capture_audit.py)."""
+    batch, j_cfg, t_cfg, jscans = _frontend_step_case()
+    jmesh = _jax_mesh(D)
+    jstep = JB.sharded_step(j_cfg, jmesh)
+    jstate = JB.shard_over_mesh(JB.make_batched_state(j_cfg, batch), jmesh)
     tstates = TBatch.shard_over_mesh(TBatch.make_batched_state(t_cfg, batch, CPU), MESH)
     assert all(s.submaps.lane.tolist() == [0, 1] for s in tstates)
-    tstates, tres = TBatch.sharded_step(t_cfg, MESH)(tstates, tscan)
-    js, jr = jax.tree.map(np.asarray, jstate), jax.tree.map(np.asarray, jres)
-    ts, tr = gather(tstates, CPU), gather(tres, CPU)
-    np.testing.assert_allclose(tr.local_pose.translation.numpy(), jr.local_pose.translation, atol=POSE_ATOL)
-    np.testing.assert_allclose(tr.local_pose.rotation.numpy(), jr.local_pose.rotation, atol=POSE_ATOL)
-    assert tr.inserted.all() and jr.inserted.all()
-    for name in ("high_values", "low_values"):
-        # the JAX package's (B, ·) per-lane banks
-        np.testing.assert_array_equal(getattr(ts.submaps, name).numpy().reshape(batch, -1),
-                                      getattr(js.submaps, name), err_msg=name)
+    tstep = TBatch.sharded_step(t_cfg, MESH)
+    eager = TBatch.batched_step(t_cfg)
+    for k, jscan in enumerate(jscans):
+        jstate, jres = jstep(jstate, JB.shard_over_mesh(jscan, jmesh))
+        tscan = _port_scan(jscan)
+        pre = [tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, st) for st in tstates]
+        tstates, tres = tstep(tstates, tscan)
+        for s_, piece in enumerate(shard_over_mesh(tscan, MESH)):
+            want_state, want = eager(pre[s_], piece)
+            _equal_trees(tstates[s_], want_state, f"step {k} shard {s_} state")
+            _equal_trees(tres[s_], want, f"step {k} shard {s_} results")
+        js, jr = jax.tree.map(np.asarray, jstate), jax.tree.map(np.asarray, jres)
+        ts, tr = gather(tstates, CPU), gather(tres, CPU)
+        np.testing.assert_allclose(tr.local_pose.translation.numpy(), jr.local_pose.translation, atol=POSE_ATOL,
+                                   err_msg=f"step {k}")
+        np.testing.assert_allclose(tr.local_pose.rotation.numpy(), jr.local_pose.rotation, atol=POSE_ATOL,
+                                   err_msg=f"step {k}")
+        assert tr.inserted.all() and jr.inserted.all()
+        for name in ("high_values", "low_values"):
+            # the JAX package's (B, ·) per-lane banks
+            np.testing.assert_array_equal(getattr(ts.submaps, name).numpy().reshape(batch, -1),
+                                          getattr(js.submaps, name), err_msg=f"{name} {k}")
+    assert tstep.counts() == {"steps": D * len(jscans), "warmups": 0, "captures": 0, "replays": 0}
+    graph = tstep.steps[0]
+    mode = audited(monkeypatch, graph.step)
+    assert mode.ops > 1000 and not mode.found, dict(mode.found)
 
 
 # ----- (d) -----
@@ -247,6 +302,11 @@ def test_sharded_frontend_step_matches_jax():
 def spa_problem():
     data, true_submaps, _ = _build_problem(np.random.default_rng(3))
     return data, true_submaps, to_torch(jax.tree.map(np.asarray, data), CPU)
+
+
+def solve_atol(moved, scale):
+    """The gate between two f32 solves of one problem (SOLVE_RTOL's comment)."""
+    return SOLVE_RTOL * moved + SOLVE_ULPS * float(np.spacing(np.float32(scale)))
 
 
 def _assert_poses_close(a, b, atol, what):
@@ -262,17 +322,63 @@ def test_sharded_solve(spa_problem, n_shards):
     mesh = Mesh((CPU,) * n_shards)
     whole = TO.solve(tdata, **kw)
     sharded = TO.solve(tdata, mesh=mesh, **kw)
-    _assert_poses_close(sharded, whole, SOLVE_ATOL, "sharded vs unsharded")
+    exact = TO.solve(TO.PoseGraphData(*(x.double() if x.is_floating_point() else x for x in tdata)), **kw)
+    moved = float((exact.node_t - tdata.node_t.double()).abs().max())
+    atol = solve_atol(moved, max(float(tdata.node_t.abs().max()), float(tdata.submap_t.abs().max())))
+    _assert_poses_close(sharded, whole, atol, "sharded vs unsharded")
     for i, pose in enumerate(true_submaps):  # tests/test_parallel.py::test_sharded_spa_constraints
         assert float(np.linalg.norm(sharded.submap_t[i].numpy() - np.asarray(pose.translation))) < 0.05
-    # the rows spread so that every shard holds valid ones
+    spread = _spread(tdata, n_shards)
+    spread_sharded, spread_whole = TO.solve(spread, mesh=mesh, **kw), TO.solve(spread, **kw)
+    _assert_poses_close(spread_sharded, spread_whole, atol, "spread rows")
+    exact = exact._replace(**{f: getattr(exact, f).float() for f in ("submap_q", "submap_t", "node_q", "node_t")})
+    for name, x in (("unsharded", whole), ("sharded", sharded), ("spread", spread_sharded),
+                    ("spread unsharded", spread_whole)):  # solve_atol's premise
+        _assert_poses_close(x, exact, atol / 2, f"{name} vs float64")
+    jout = jax.jit(lambda d: JO.solve(d, mesh=_jax_mesh(n_shards, "c"), **kw))(data)
+    _assert_poses_close(sharded, jax.tree.map(np.asarray, jout), JAX_SOLVE_ATOL, "port vs JAX sharded")
+
+
+def _spread(tdata, n_shards):
+    """The problem's rows permuted so that every shard holds valid ones."""
     perm = torch.from_numpy(np.random.default_rng(5).permutation(tdata.c_valid.shape[0]))
     spread = tdata._replace(**{f: getattr(tdata, f)[perm] for f in TO._C_FIELDS})
     per = -(-spread.c_valid.shape[0] // n_shards)
     assert all(bool(spread.c_valid[k * per:(k + 1) * per].any()) for k in range(n_shards))
-    _assert_poses_close(TO.solve(spread, mesh=mesh, **kw), TO.solve(spread, **kw), SOLVE_ATOL, "spread rows")
-    jout = jax.jit(lambda d: JO.solve(d, mesh=_jax_mesh(n_shards, "c"), **kw))(data)
-    _assert_poses_close(sharded, jax.tree.map(np.asarray, jout), JAX_SOLVE_ATOL, "port vs JAX sharded")
+    return spread
+
+
+COMPILED_SOLVE_ITERATIONS = 2  # GN steps of the compiled sharded solves
+
+
+@pytest.mark.parametrize("rows", ["contiguous", "spread"])
+@pytest.mark.parametrize("n_shards", [4, 3])
+def test_compiled_sharded_solve_equals_eager(spa_problem, n_shards, rows, monkeypatch):
+    """The SPA's programs over a mesh (backend/pose_graph.py::_SpaPrograms,
+    through `PoseGraph._solve`) equal the eager `solve(mesh=)` with the
+    pose graph's settings exactly (the same ops in the same order), twice
+    from one program set; then each program's step issues no op a capture
+    refuses (tests/torch_capture_audit.py)."""
+    _, _, tdata = spa_problem
+    if rows == "spread":
+        tdata = _spread(tdata, n_shards)
+    mesh = Mesh((CPU,) * n_shards)
+    tcfg = _port_config()
+    pg = TPG.PoseGraph(tcfg.pose_graph, tcfg.trajectory_builder, device="cpu", mesh=mesh)
+    problem = {k: v.numpy() for k, v in tdata._asdict().items()}
+    blocks = TO.blocks_of(tdata)
+    op = tcfg.pose_graph.optimization_problem
+    want = pg._read_poses(TPG.spa_solve_eager(op, tdata, COMPILED_SOLVE_ITERATIONS, blocks, mesh))
+    for _ in range(2):
+        np.testing.assert_array_equal(pg._solve(problem, COMPILED_SOLVE_ITERATIONS, blocks), want)
+    assert not np.array_equal(want, pg._read_poses(tdata))  # the solve moved the poses
+    programs = pg.programs()
+    assert {name: len(gs) for name, gs in programs.items()} == {
+        "spa_rows": n_shards, "spa_jtj": n_shards, "spa_start": 1, "spa_cg": 1, "spa": 1}
+    for gs in programs.values():
+        for _, g in gs:
+            mode = audited(monkeypatch, g.step)
+            assert mode.ops > 5 and not mode.found, (g.name, dict(mode.found))
 
 
 # ----- (e) -----
@@ -344,11 +450,15 @@ def test_pose_graph_over_mesh():
     jpg = JPoseGraph(jcfg.pose_graph, jcfg.trajectory_builder, mesh=_jax_mesh(D))
     _scenario(jpg, jcfg, 2, [0.8, -0.5, 0.2], [4.0, 0.0, 0.0], finish_s1=False)
     _same_constraints(jpg, meshed)
+    before = np.stack([n.global_pose.translation for n in whole.nodes])
     for pg in (whole, meshed):
         pg.run_final_optimization()
+    after = np.stack([n.global_pose.translation for n in whole.nodes])
+    atol = solve_atol(float(np.abs(after - before).max()),
+                      max(float(np.abs(after).max()), *(float(np.abs(s.global_pose.translation).max())
+                                                         for s in whole.submaps)))
     for a, b in zip(whole.nodes, meshed.nodes):
-        np.testing.assert_allclose(b.global_pose.translation, a.global_pose.translation, atol=SOLVE_ATOL,
-                                   rtol=0)
+        np.testing.assert_allclose(b.global_pose.translation, a.global_pose.translation, atol=atol, rtol=0)
     assert float(np.linalg.norm(meshed.nodes[2].global_pose.translation)) < 0.45 * float(
         np.linalg.norm([0.8, -0.5, 0.2]))  # tests/test_pose_graph.py:200-204
 

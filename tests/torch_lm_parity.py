@@ -1,6 +1,6 @@
 """The JAX package's scan-matcher LM, iteration by iteration, beside the port's.
 
-    JAX_PLATFORMS=cpu python3 tests/torch_lm_parity.py [--scans 6] [--out PATH]
+    JAX_PLATFORMS=cpu python3 tests/torch_lm_parity.py [--scans 6] [--out PATH] [--late-lane]
 
 `jax_lm_trace` is tools/torch_lm_trace.py's `lm_trace` on the JAX package:
 dliom_tpu/ops/scan_matcher.py's `lm_step`, run one iteration at a time
@@ -9,7 +9,9 @@ under jit with the package's own `_residuals` and `_apply_delta` through
 over the tool's bench-config scans from its seeded state; at each scan's
 match it traces the port's LM on the CPU (`traced`) and the JAX package's
 from the same arguments, carried over with `dliom_tpu_torch/interop.py`,
-and prints the tool's `compare` of the port against JAX. This module
+and prints the tool's `compare` of the port against JAX. `--late-lane`
+prints `late_lane_window` instead: where the port and JAX part after an
+empty first scan (tests/test_torch_lm_trace.py holds it). This module
 imports both packages, so it lives with the tests.
 """
 
@@ -136,12 +138,87 @@ def trace_both(args, kwargs) -> dict:
     return {"cpu": tl.traced(args, kwargs), "jax": jax_lm_trace(*jargs, **jkw)}
 
 
+def late_lane_window() -> dict:
+    """The late lane of tests/test_torch_mesh.py::test_batched_presearch_with_a_late_lane
+    at its first scan, which has no points, from JAX's fresh state on the
+    CPU: "pre_gn", per float field of the sliding window as its GN finds
+    it, the largest difference between the port's step (tools/torch_lm_trace.py's
+    `step_stages`) and JAX's (its `optimize` left out, so that the step
+    returns that window) over the larger of the field's largest magnitude
+    and 1, and "pre_gn_ints_equal"; then, from that window, the port's f32
+    GN, JAX's f32 GN and the port's GN in float64: "cond" and "solve_err"
+    per iteration (`window_trace`: the scaled system's condition number,
+    the f32 solve's error relative to a float64 solve of the same system),
+    the float64 GN's largest key movement "moved" (m), each f32 GN's
+    largest position departure from it ("error", m) and the two f32 GNs'
+    largest position gap ("gap", m)."""
+    import functools
+    import warnings
+
+    import torch
+
+    from dliom_tpu.common.config import load_config as j_load_config
+    from dliom_tpu.frontend import lio as JL
+    from dliom_tpu.imu import preintegration as JP
+    from dliom_tpu.imu import window_optimizer as JW
+    from dliom_tpu_torch.common.config import load_config as t_load_config
+    from dliom_tpu_torch.imu import window_optimizer as TW
+    from dliom_tpu_torch.interop import lio_scan_input_from_numpy, lio_state_from_numpy
+    from test_torch_batch import _lane, _overrides, _scans
+    from test_torch_mesh import _rtc
+
+    cpu = torch.device("cpu")
+    j_cfg = j_load_config("basic", _rtc(_overrides(True))).trajectory_builder
+    t_cfg = t_load_config("basic", _rtc(_overrides(True))).trajectory_builder
+    scan = _lane(_scans(n_scans=1, start=2, seed=1)[0], 1)
+    assert not scan.mask.any()
+    jstate = JL.make_lio_state(j_cfg, JP.NavState.identity(), jnp.zeros(3), jnp.zeros(3))
+    optimize = JW.optimize
+    JW.optimize = lambda win, *a, **k: win  # the step's window as its GN finds it
+    try:
+        jwin = jax.jit(lambda s, x: JL.lio_step(s, x, j_cfg)[0].window)(jstate, jax.tree.map(jnp.asarray, scan))
+    finally:
+        JW.optimize = optimize
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        stages = tl.step_stages(t_cfg, lio_state_from_numpy(jax.tree.map(np.asarray, jstate), cpu),
+                                lio_scan_input_from_numpy(scan, cpu))
+    win = stages["window_state"]
+    pre_gn, ints_equal = {}, True
+    for f, x, y in zip(win._fields, win, jwin):
+        x, y = x.numpy(), np.asarray(y)
+        if x.dtype.kind == "f":
+            pre_gn[f] = float(np.abs(x - y).max() / max(np.abs(y).max(), 1.0))
+        else:
+            ints_equal &= bool(np.array_equal(x, y))
+    imu, g, iters = t_cfg.imu, t_cfg.imu.gravity, t_cfg.gn_iterations
+    port = TW.optimize(win, imu, g, iterations=iters)
+    traced, rows = tl.window_trace(win, imu, g, iters)
+    exact = TW.optimize(type(win)(*(x.double() if x.is_floating_point() else x for x in win)), imu, g,
+                        iterations=iters)
+    jax_out = jax.jit(functools.partial(optimize, cfg=j_cfg.imu, gravity=g, iterations=iters))(
+        type(jwin)(*(jnp.asarray(x.numpy()) for x in win)))
+    p64 = exact.p.numpy()
+    return {"pre_gn": pre_gn, "pre_gn_ints_equal": ints_equal,
+            "trace_equals_optimize": all(bool(torch.equal(a, b)) for a, b in zip(traced, port)),
+            "cond": [r["cond"] for r in rows], "solve_err": [r["solve_err"] for r in rows],
+            "moved": float(np.abs(p64 - win.p.double().numpy()).max()),
+            "error": {"port": float(np.abs(port.p.double().numpy() - p64).max()),
+                      "jax": float(np.abs(np.asarray(jax_out.p, np.float64) - p64).max())},
+            "gap": float(np.abs(port.p.numpy() - np.asarray(jax_out.p)).max())}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scans", type=int, default=6)
+    ap.add_argument("--late-lane", action="store_true", help="print `late_lane_window()` and stop")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     jax.config.update("jax_default_device", jax.devices("cpu")[0])
+    if args.late_lane:
+        out = late_lane_window()
+        print(json.dumps(out), flush=True)
+        return out
     cfg, state, inputs = tl.bench_state(args.scans)
     traces = []
     with tl.recording_matches(lambda a, k: traces.append(trace_both(a, k))):
