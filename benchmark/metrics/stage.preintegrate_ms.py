@@ -1,0 +1,12 @@
+"""stage.preintegrate_ms (ms/step): device time a compiled step between its
+stage marks (for `rest`, the step's time less the stages'), median over
+the replays, of `lio.preintegrate`: the IMU bridge: preintegration (K2)
+and the prediction."""
+
+from benchmark.metrics import marks
+
+SOURCE = "program_span"
+
+
+def read(ctx):
+    return marks.stage(ctx, "preintegrate", "ms")

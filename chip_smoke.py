@@ -1039,7 +1039,8 @@ def check_compiled(ga, ac, dev, eager_rate, eager_launches, spawn):
     step(fresh_state(cfg, dev), inputs[0])
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    check(step.counts() == {"steps": 1, "warmups": 1, "captures": 1, "replays": 0}, f"compiled: {step.counts()}")
+    tallies = {k: v for k, v in step.counts().items() if k != "marks"}
+    check(tallies == {"steps": 1, "warmups": 1, "captures": 1, "replays": 0}, f"compiled: {tallies}")
     print(f"compiled: the first step (the eager warm-up, then the capture) in {first_s:.2f} s, of which "
           f"capture and instantiation {step.capture_seconds} s; a replay launches {step.launches}",
           flush=True)
@@ -1116,8 +1117,10 @@ def check_compiled(ga, ac, dev, eager_rate, eager_launches, spawn):
               f"{cfg.ceres_scan_matcher.max_num_iterations} {c['fixed_trip_ms']:.1f} ms/scan; poses equal: "
               f"{c['equal']}", flush=True)
         check(c["equal"], f"compiled: on the {d.type} the fixed-trip LM's poses differ from the early exit's")
+    marks = {"step": step.counts()["marks"], "chunk": chunk.counts()["marks"]}
+    print(f"compiled: stage marks, medians over the replays (common/stages.py): {json.dumps(marks)}", flush=True)
     lm = lm_departure(cfg, after_warmup, inputs[WARMUP:WARMUP + EXIT_SCANS], dev)
-    return launches, {"first_step_s": first_s, "capture_s": step.capture_seconds, "graph_vs_eager": compare,
+    return launches, {"first_step_s": first_s, "stage_marks": marks, "capture_s": step.capture_seconds, "graph_vs_eager": compare,
                       "lm_exit_cost": {d.type: c for d, c in exit_cost.items()}, "lm_departure": lm,
                       "eager_scans_per_s": eager_rate, "step_scans_per_s": step_rate, "step_idle_share": step_idle,
                       "chunk": CHUNK, "chunk_scans_per_s": chunk_rate, "chunk_first_s": chunk_first_s,

@@ -53,6 +53,11 @@ may be capturing.
 The static result and state hold the last step's values until the next
 call: a caller that keeps any of them across a step copies it first.
 
+A graph whose body has stages (`common/stages.stage`: the LIO and
+frontend steps') also times and counts them in every replay, with device
+marks captured between them (`common/stages.py`); `counts()` then
+carries their summary.
+
 The kernel wrappers count launches in Python, which a replay does not run.
 So each graph records the launches its capture made (and takes them back
 off the counters: a capture runs nothing) and adds them on every replay.
@@ -74,12 +79,14 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from dliom_tpu_torch.common import launches as _launches
+from dliom_tpu_torch.common import stages
 from dliom_tpu_torch.imu import affine_chain as ac
 from dliom_tpu_torch.ops import grouped_apply as ga
 
 # The kernel wrappers' launch counters, (module, global name).
 COUNTERS = ((ga, "LAUNCHES"), (ga, "DENSE_LAUNCHES"), (ac, "LAUNCHES"))
 _ALIGN = 16  # bytes: every input leaf starts on a 16-byte boundary of the flat buffer
+COUNTS = ("steps", "warmups", "captures", "replays")  # a StepGraph's counters
 POOLS = ("device", "own")  # the named pools; a graph may also be given a SharedPool
 _CAPTURE_LOCK = threading.Lock()  # one capture at a time in the process
 _SIDE = threading.local()  # a thread's capture stream, where its current one is the default stream
@@ -229,7 +236,10 @@ class StepGraph:
     """`body(state, inp) -> (state, result)` as a compiled step; see the
     module docstring. `pool` is one of POOLS or a SharedPool; `name` names
     the program in reports. Counts its steps and, on the card, its
-    warm-ups, captures and replays."""
+    warm-ups, captures and replays. Where the eager warm-up met stages
+    (`common/stages.py`), the capture marks them between a mark before
+    the body and one after the write-back; each replay's host entry time
+    is kept."""
 
     def __init__(self, body: Callable, adopt: Callable[[object], Iterable[torch.Tensor]] = lambda s: (),
                  pool: str = "device", name: str = "step"):
@@ -245,6 +255,7 @@ class StepGraph:
         self.launches: Dict[str, int] = {}
         self._lookback = ga.LookbackScratch()
         self._pinned = self._copied = None
+        self.marks = stages.StageMarks()
 
     # ----- binding and copies -----
 
@@ -346,21 +357,30 @@ class StepGraph:
     # ----- stepping -----
 
     def __call__(self, state, inp):
+        entry_ns = time.perf_counter_ns()
         if self.state is None:
             self.bind(state, inp)
         else:
             self.load_state(state)
         self.load_input(inp)
-        self.step()
+        self._step(entry_ns)
         return self.state, self.result
 
-    def _run(self) -> None:
-        with ga.lookback_owner(self._lookback):
+    def _run(self, marks: Optional[stages.StageMarks] = None) -> None:
+        with ga.lookback_owner(self._lookback), stages.owner(marks):
             self._write_back(*self.body(self.state, self.inp))
+
+    def _run_marked(self) -> None:
+        self.marks.begin()
+        self._run(self.marks)
+        self.marks.end()
 
     def step(self) -> None:
         """One step on the static input already loaded (`load_input` or
         `stage_input`)."""
+        self._step(time.perf_counter_ns())
+
+    def _step(self, entry_ns: int) -> None:
         self.steps += 1
         if self.device.type != "cuda":
             self._run()
@@ -368,36 +388,49 @@ class StepGraph:
         # the warm-up's launches and the replay go to the graph's own card,
         # whichever card is current (a mesh's shards step from one thread)
         if self.graph is not None:
+            self.marks.host_ns[self.replays % stages.RING] = entry_ns
             with torch.cuda.device(self.device):
                 self.graph.replay()
             self.replays += 1
             add_launches(self.launches)
             return
         with cusolver(), torch.cuda.device(self.device):
-            self._run()
+            self._run(self.marks)
             self.warmups += 1
             self._capture()
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        fn = self._run
+        if self.marks.rehearsed:
+            self.marks.arm(self.device)
+            fn = self._run_marked
         with _launches.recording() as own:
-            capture(graph, pool_handle(self.pool, self.device), self.device, self._run)
+            capture(graph, pool_handle(self.pool, self.device), self.device, fn)
         self.launches = {k: own.get(k, 0) for k in launch_counts()}
         add_launches({k: -v for k, v in self.launches.items()})
         self.graph = graph
         self.captures += 1
         self.capture_seconds = time.perf_counter() - t0
 
-    def counts(self) -> Dict[str, int]:
-        return {"steps": self.steps, "warmups": self.warmups, "captures": self.captures,
-                "replays": self.replays}
+    def counts(self) -> dict:
+        """Steps, warm-ups, captures and replays; once a capture has marked
+        stages also `marks`, the summary of its stage marks
+        (`common/stages.py`), read once the calling thread's stream has
+        finished."""
+        out = {k: getattr(self, k) for k in COUNTS}
+        if self.marks.armed:
+            out["marks"] = self.marks.summary(self.replays)
+        return out
 
 
 def sum_counts(graphs: Iterable[Optional[StepGraph]]) -> Dict[str, int]:
-    """`StepGraph.counts()` summed over graphs (None: a step not made yet)."""
-    out = dict.fromkeys(("steps", "warmups", "captures", "replays"), 0)
+    """`StepGraph.counts()`'s COUNTS summed over graphs (None: a step not
+    made yet); no summary of marks is read."""
+    out = dict.fromkeys(COUNTS, 0)
     for g in graphs:
-        for k, v in (g.counts() if g is not None else {}).items():
-            out[k] += v
+        if g is not None:
+            for k in COUNTS:
+                out[k] += getattr(g, k)
     return out

@@ -5,8 +5,8 @@ local_trajectory_builder_3d.cc with WindowOptimize in the loop.
 
 The submap banks inside the state are updated in place by each step (the
 JAX package donates them to the same effect); every other field is new.
-The IMU bridge and the window stage run under `record_function` spans
-(lio.preintegrate, lio.window) beside the frontend's.
+The IMU bridge and the window stage run under `common/stages.py::stage`
+spans (lio.preintegrate, lio.window) beside the frontend's.
 
 `lio_step` runs eagerly, as the JAX `lio_step` is not jitted either. Its
 compiled forms are `make_jit_lio_step` (one CUDA graph replay per scan) and
@@ -21,12 +21,12 @@ import functools
 from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
-from torch.profiler import record_function
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from dliom_tpu_torch.common.config import TrajectoryBuilderConfig
 from dliom_tpu_torch.common.device import constant
 from dliom_tpu_torch.common.graph import StepGraph
+from dliom_tpu_torch.common.stages import stage
 from dliom_tpu_torch.frontend.local_trajectory_builder import (
     FrontendState,
     ScanInput,
@@ -149,7 +149,7 @@ def lio_step(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig) -
     g_norm = cfg.imu.gravity
 
     # 1. preintegrate the IMU bridge (kernel K2 on CUDA)
-    with record_function("lio.preintegrate"):
+    with stage("lio.preintegrate"):
         p0 = pre.make_preintegrated(state.ba, state.bg, state.last_acc, state.last_gyr)
         preint = pre.integrate(p0, inp.imu_dts, inp.imu_acc, inp.imu_gyr, inp.imu_mask, noise)
         predicted = pre.predict(state.nav, preint, g_norm)
@@ -162,7 +162,7 @@ def lio_step(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig) -
         grav_ok = torch.zeros((), dtype=torch.bool, device=dev)
 
     def fuse(pose_estimate: Rigid3):
-        with record_function("lio.window"):
+        with stage("lio.window"):
             return fuse_window(state.window, preint, predicted, pose_estimate, grav_dir, grav_ok,
                                state.ba, state.bg, cfg)
 

@@ -17,9 +17,10 @@ The submap banks are updated in place; the returned FrontendState shares
 them with the one passed in. The stages are functions of their own
 (`filter_scan`, `match_target`, `match_scan`, `insert_scan`,
 `histogram_points`, `finish_step`) that the batched run
-(parallel/batch.py) drives over B lanes. The stages run under `record_function` spans
-(frontend.filter, .correlative, .match, .insert, .histogram) that
-torch.profiler reads.
+(parallel/batch.py) drives over B lanes. The stages run under
+`common/stages.py::stage` spans (frontend.filter, .correlative, .match,
+.insert, .histogram) that torch.profiler reads and that a compiled LIO
+step marks on the card.
 """
 
 from __future__ import annotations
@@ -27,10 +28,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from dliom_tpu_torch.common.config import TrajectoryBuilderConfig
 from dliom_tpu_torch.common.device import constant
+from dliom_tpu_torch.common.stages import stage
 from dliom_tpu_torch.imu.window_optimizer import tree_where
 from dliom_tpu_torch.mapping import motion_filter as mf
 from dliom_tpu_torch.mapping.submap import (
@@ -110,13 +111,13 @@ def step(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilderConfig, fu
     stage runs between matching and insertion and `(result, aux)` is
     returned."""
     state = state._replace(submaps=apply_pending_spawn(state.submaps, cfg.submaps))
-    with record_function("frontend.filter"):
+    with stage("frontend.filter"):
         clouds = filter_scan(state.pose, scan, cfg)
     submap_pose, bank_slot, initial_in_submap = match_target(state.submaps, clouds.prediction)
     if cfg.use_online_correlative_scan_matching:
-        with record_function("frontend.correlative"):
+        with stage("frontend.correlative"):
             initial_in_submap = correlative_match(state.submaps, clouds, bank_slot, initial_in_submap, cfg)
-    with record_function("frontend.match"):
+    with stage("frontend.match"):
         result = match_scan(state.submaps, clouds, bank_slot, initial_in_submap, cfg)
     pose_estimate = submap_pose.compose(result.pose)
 
@@ -126,10 +127,10 @@ def step(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilderConfig, fu
     else:
         opt_pose, fuse_aux = fuse_fn(pose_estimate)
 
-    with record_function("frontend.insert"):
+    with stage("frontend.insert"):
         new_submaps, new_mf, insert, finished, batch = insert_scan(state, scan.time, clouds, opt_pose, cfg)
 
-    with record_function("frontend.histogram"):
+    with stage("frontend.histogram"):
         hist = compute_histogram(histogram_points(clouds, opt_pose), clouds.filtered.mask,
                                  num_buckets=cfg.rotational_histogram_size)
     new_state, out = finish_step(state, scan, clouds, opt_pose, result, new_submaps, new_mf, insert,

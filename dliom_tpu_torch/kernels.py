@@ -42,6 +42,10 @@ _SIGNATURES = {
     "dliom_empty_launch": [_P],
     # f, q, a_out, p_out, batch, m, stream
     "dliom_affine_chain": [_P, _P, _P, _P, _I, _I, _P],
+    # ring, rows, slots, slot, close, stream
+    "dliom_stage_mark": [_P, _I, _I, _I, _I, _P],
+    # stream, out (int64)
+    "dliom_capture_kernels": [_P, _P],
 }
 
 _lib = None

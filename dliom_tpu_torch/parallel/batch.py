@@ -51,13 +51,13 @@ from typing import Tuple
 
 import torch
 from torch.func import vmap
-from torch.profiler import record_function
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from dliom_tpu_torch.common import mesh as _mesh
 from dliom_tpu_torch.common.config import TrajectoryBuilderConfig
 from dliom_tpu_torch.common.device import constant, get_device
 from dliom_tpu_torch.common.graph import StepGraph, sum_counts
+from dliom_tpu_torch.common.stages import stage
 from dliom_tpu_torch.common.mesh import Mesh, gather, make_mesh  # noqa: F401  (the JAX package's names)
 from dliom_tpu_torch.frontend.lio import (
     LioResult,
@@ -268,25 +268,25 @@ def frontend_lanes(state: FrontendState, scan: ScanInput, cfg: TrajectoryBuilder
     lanes = state._replace(submaps=_over_lanes(
         functools.partial(apply_pending_spawn, cfg=cfg.submaps, defer_bank_clears=True),
         _lane_fields(shared)))
-    with record_function("frontend.filter"):
+    with stage("frontend.filter"):
         clouds = _over_lanes(functools.partial(filter_scan, cfg=cfg), lanes.pose, scan)
     submap_pose, bank_slot, initial_in_submap = _over_lanes(match_target, lanes.submaps,
                                                             clouds.prediction)
     if cfg.use_online_correlative_scan_matching:
-        with record_function("frontend.correlative"):
+        with stage("frontend.correlative"):
             initial_in_submap = correlative_match(shared, clouds, bank_slot, initial_in_submap, cfg)
-    with record_function("frontend.match"):
+    with stage("frontend.match"):
         result = match_scan(shared, clouds, bank_slot, initial_in_submap, cfg)
     pose_estimate = submap_pose.compose(result.pose)
     if fuse_fn is None:
         opt_pose, fuse_aux = pose_estimate, None
     else:
         opt_pose, fuse_aux = fuse_fn(pose_estimate)
-    with record_function("frontend.insert"):
+    with stage("frontend.insert"):
         new_submaps, new_mf, insert, finished, batch = _over_lanes(
             functools.partial(insert_scan, cfg=cfg, defer_grid_writes=True),
             lanes, scan.time, clouds, opt_pose)
-    with record_function("frontend.histogram"):
+    with stage("frontend.histogram"):
         hist = compute_histogram(_over_lanes(histogram_points, clouds, opt_pose),
                                  clouds.filtered.mask, num_buckets=cfg.rotational_histogram_size)
     new_state, out = finish_step(lanes, scan, clouds, opt_pose, result,
@@ -301,8 +301,9 @@ def batched_step(cfg: TrajectoryBuilderConfig):
     def run(state: FrontendState, scan: ScanInput) -> Tuple[FrontendState, ScanResult]:
         state = _clear_spawned(cfg, state)
         new_state, result = frontend_lanes(state, scan, cfg)
-        return new_state._replace(submaps=write_flat_insertion(cfg, new_state.submaps,
-                                                      result.insertion_batch)), result
+        with stage("frontend.insert"):
+            submaps = write_flat_insertion(cfg, new_state.submaps, result.insertion_batch)
+        return new_state._replace(submaps=submaps), result
 
     return run
 
@@ -313,7 +314,7 @@ def lio_lanes(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig):
     dev = inp.points.device
     noise = pre.noise_matrix(cfg.imu, dev)
     g_norm = cfg.imu.gravity
-    with record_function("lio.preintegrate"):
+    with stage("lio.preintegrate"):
         p0 = _over_lanes(pre.make_preintegrated, state.ba, state.bg, state.last_acc, state.last_gyr)
         preint = pre.integrate(p0, inp.imu_dts, inp.imu_acc, inp.imu_gyr, inp.imu_mask, noise)
         predicted = _over_lanes(functools.partial(pre.predict, gravity=g_norm), state.nav, preint)
@@ -325,7 +326,7 @@ def lio_lanes(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig):
         grav_ok = torch.zeros(b, dtype=torch.bool, device=dev)
 
     def fuse(pose_estimate):
-        with record_function("lio.window"):
+        with stage("lio.window"):
             return _over_lanes(functools.partial(fuse_window, cfg=cfg), state.window, preint,
                                predicted, pose_estimate, grav_dir, grav_ok, state.ba, state.bg)
 
@@ -353,7 +354,8 @@ def batched_lio_body(cfg: TrajectoryBuilderConfig, batch: int):
         state = clear_spawned_slots(cfg, state)
         new_state, results = lio_lanes(state, scans, cfg)
         fe = new_state.frontend
-        fe = fe._replace(submaps=write_flat_insertion(cfg, fe.submaps, results.scan.insertion_batch))
+        with stage("frontend.insert"):
+            fe = fe._replace(submaps=write_flat_insertion(cfg, fe.submaps, results.scan.insertion_batch))
         return new_state._replace(frontend=fe), results
 
     return run

@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from dliom_tpu_torch.common.config import load_config
 from dliom_tpu_torch.imu import affine_chain as K2
@@ -675,8 +676,77 @@ def test_compiled_step_replays_the_eager_step(cuda_device):
         assert replayed == {"dliom_tpu_torch.ops.grouped_apply.LAUNCHES": 2, "dliom_tpu_torch.ops.grouped_apply.DENSE_LAUNCHES": 0,
                             "dliom_tpu_torch.imu.affine_chain.LAUNCHES": 1}, (i, replayed)
         _held_step(cfg, pre, inp, state, res)
-    assert step.counts() == {"steps": 6, "warmups": 1, "captures": 1, "replays": 5}
+    assert _tallies(step.counts()) == {"steps": 6, "warmups": 1, "captures": 1, "replays": 5}
     assert int(state.failures) == 0
+
+
+def _tallies(counts):
+    """A StepGraph's counts without the summary of its stage marks."""
+    return {k: v for k, v in counts.items() if k != "marks"}
+
+
+def _kernels_in_one_replay(step, inp):
+    """Kernels (not copies or sets) the card ran for one replay of `step`
+    on `inp`, in torch.profiler's device trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step.load_input(inp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step.step()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() != DeviceType.CPU]
+    return sum(1 for n in names if not n.lower().startswith(("memcpy", "memset")))
+
+
+def _without_marks(body):
+    """`body` with its stages hidden from the graph that captures it, so
+    that the graph marks none."""
+    from dliom_tpu_torch.common import stages
+
+    def run(state, inp):
+        with stages.owner(None):
+            return body(state, inp)
+    return run
+
+
+def test_compiled_step_marks_its_stages(cuda_device):
+    """The marked `make_jit_lio_step` against the same body captured without
+    marks: every replay's state and result bit for bit. Its summary: the
+    six stages and `rest` hold the graph's kernels less its marks, and the
+    graph's kernels are what one replay runs (the profiler's count); each
+    stage takes more than 0 ms, `rest` 0 ms or more; the clock's bracket
+    within 50 us."""
+    import functools
+
+    from torch.utils._pytree import tree_leaves
+
+    from dliom_tpu_torch.common.graph import StepGraph
+    from dliom_tpu_torch.frontend.lio import bank_leaves, lio_step, make_jit_lio_step
+
+    cfg, scan, state = _small_step_case(cuda_device)
+    marked = make_jit_lio_step(cfg)
+    plain = StepGraph(_without_marks(functools.partial(lio_step, cfg=cfg)), adopt=bank_leaves)
+    a, b = state, _clone(state)
+    for i in range(6):
+        inp = scan(i)
+        a, ra = marked(a, inp)
+        b, rb = plain(b, inp)
+        torch.cuda.synchronize()
+        for x, y in zip(tree_leaves((a, ra)), tree_leaves((b, rb))):
+            assert (x is None and y is None) or torch.equal(x, y), i
+    m = marked.counts()["marks"]
+    assert plain.counts() == _tallies(marked.counts())
+    stages_ = m["stages"]
+    assert list(stages_) == ["lio.preintegrate", "frontend.filter", "frontend.match", "lio.window",
+                             "frontend.insert", "frontend.histogram", "rest"]
+    assert m["replays"] == 5 and m["slots"] == 14
+    assert sum(v["kernels"] for v in stages_.values()) == m["kernels"] - m["slots"]
+    assert all(v["kernels"] > 0 for v in stages_.values())
+    assert all(v["ms"] > 0 for k, v in stages_.items() if k != "rest") and stages_["rest"]["ms"] >= 0
+    assert 0 < m["device_ms"] and 0 < m["launch_ms"] and 0 <= m["idle_share"] < 1
+    assert m["clock"]["error_ns"] < 50_000
+    assert _kernels_in_one_replay(marked, scan(6)) == m["kernels"]
 
 
 def _spa_case(device):
@@ -945,7 +1015,7 @@ def test_compiled_step_on_a_second_card(second_card):
         torch.cuda.synchronize(second_card)
         with torch.cuda.device(second_card):
             _held_step(cfg, pre, inp, state, res)
-    assert step.counts() == {"steps": 4, "warmups": 1, "captures": 1, "replays": 3}
+    assert _tallies(step.counts()) == {"steps": 4, "warmups": 1, "captures": 1, "replays": 3}
     assert res.scan.local_pose.translation.device == second_card
     assert torch.cuda.current_device() == 0
 
