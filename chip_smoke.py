@@ -20,6 +20,12 @@ Phases, in order; any failed check raises and the exit code is non-zero:
      1e-6, at M = 32 (the dynamic initializer's padded segment), 48 (the
      bench config), 64 (the default) and 200 (longer than one warp's ring
      of samples), both timed;
+ 4b. K3 (the window Gauss-Newton, csrc/window_gn.cu) against
+     `optimize_plain` at W = 4 (B = 1 and 18) and W = 6, at 8 iterations
+     and at 1, each field within its bound (tests/window_cases.py), both
+     timed from CUDA graphs beside the bound of K3's dependent chain
+     (tools/torch_window_gn_times.py); K3's launches are counted on every
+     LIO path below, one a step (`K3_BY_PATH`, the `kernels` line);
   5. the slice: `lio_step` at the bench config (bench.py's
      build_config values, 32768 raw points and 48 IMU samples per scan,
      the synthetic corkscrew with bench.py's IMU recipe), 2 warm-up scans
@@ -518,6 +524,11 @@ E2E_OVERRIDES = {
 SPAWN_CAPACITIES = {"brick_apply_groups": 1024, "low_brick_apply_groups": 384}
 
 
+# K3's launches (imu/window_optimizer.py's LAUNCHES) on each main path, as
+# its phase counts them: one a LIO step, eager or replayed, every lane in it.
+K3_BY_PATH = {}
+
+
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -812,6 +823,31 @@ def check_affine_chain(ac, rng):
     return out
 
 
+def check_window_gn(dev):
+    """Phase 4b: K3 (csrc/window_gn.cu) against `optimize_plain` on the card
+    at tools/torch_window_gn_times.py's shapes (W = 4 at B = 1 and 18, the
+    runner's W = 6), at 8 iterations and at 1: each of q, p, v, ba, bg
+    within its bound (tests/window_cases.py, as the card tests hold it);
+    the graph ms of both and the bound of K3's dependent chain."""
+    import torch_window_gn_times as wgn
+    from window_cases import out_of_bounds  # on the path the tool sets
+
+    ns = wgn.chain_latency_ns()
+    print("K3 chain: ns a dependent step " + ", ".join(f"{k} {v:.3f}" for k, v in ns.items()), flush=True)
+    out = {"chain_latency_ns": ns}
+    for w, b in wgn.SHAPES:
+        m = wgn.measure(w, b, dev, ns)
+        check(not out_of_bounds(m["gaps"]), f"K3 W={w} B={b}: {out_of_bounds(m['gaps'])}")
+        gaps = ", ".join(f"{f} {g['gap']:.2e}/{g['step']:.2e}" for f, g in m["gaps"]["iterations_1"].items())
+        print(f"K3 window_gn W={w} B={b}: gap/plain step at 1 iteration {gaps}; largest gap at 8 "
+              f"{max(g['gap'] for g in m['gaps']['iterations_8'].values()):.3e}; graph ms "
+              f"{m['k3_graph_ms']:.4f} (plain {m['plain_graph_ms']:.3f}, {m['plain_kernels']} kernels); "
+              f"chain bound {m['chain_bound_ms']:.4f} ms over {m['chain_steps']} dependent steps; "
+              f"{m['bytes']} B", flush=True)
+        out[f"W{w}_B{b}"] = m
+    return out
+
+
 def bench_scans(device):
     """bench.py's ten scans (corkscrew poses, IMU recipe, seed 0), cycled,
     stamped 0.6 s apart."""
@@ -961,13 +997,16 @@ def check_slice(ga, ac, dev):
     torch.cuda.reset_peak_memory_stats()
     state, results = run_lio_chunk(fresh_state(cfg, dev), inputs[:WARMUP], cfg)
     torch.cuda.synchronize()
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
     ga.LAUNCHES = 0  # the timed run starts: zero the launch counts
-    ac.LAUNCHES = 0
+    ac.LAUNCHES = wo.LAUNCHES = 0
     t0 = time.perf_counter()
     state, timed = run_lio_chunk(state, inputs[WARMUP:WARMUP + TIMED], cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"grouped_apply": ga.LAUNCHES, "affine_chain": ac.LAUNCHES}
+    K3_BY_PATH["slice"] = wo.LAUNCHES
     results += timed
     scans_per_s = TIMED / wall
     inserted = sum(bool(r.scan.inserted) for r in timed)
@@ -988,6 +1027,8 @@ def check_slice(ga, ac, dev):
     check(launches["grouped_apply"] >= 2 * inserted and launches["grouped_apply"] > 0,
           "K1 launched for both brick banks on every inserted scan")
     check(launches["affine_chain"] >= TIMED, "K2 launched on every scan")
+    check(K3_BY_PATH["slice"] == TIMED,
+          f"slice: K3 {K3_BY_PATH['slice']} launches for {TIMED} steps")
 
     t_prof = time.perf_counter()
     profile_slice(cfg, state, inputs[WARMUP + TIMED:])
@@ -1070,14 +1111,19 @@ def check_compiled(ga, ac, dev, eager_rate, eager_launches, spawn):
     step(step.state, inputs[1])
     after_warmup = tree_clone(step.state)
     torch.cuda.synchronize()
-    ga.LAUNCHES = ac.LAUNCHES = 0
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ga.LAUNCHES = ac.LAUNCHES = wo.LAUNCHES = 0
     t0 = time.perf_counter()
     for inp in inputs[WARMUP:]:
         step(step.state, inp)
     torch.cuda.synchronize()
     step_rate = TIMED / (time.perf_counter() - t0)
     launches = {"grouped_apply": ga.LAUNCHES, "affine_chain": ac.LAUNCHES}
+    K3_BY_PATH["compiled"] = wo.LAUNCHES
     check(launches == eager_launches, f"compiled: launches over the replays {launches}, eager {eager_launches}")
+    check(K3_BY_PATH["compiled"] == TIMED,
+          f"compiled: K3 {K3_BY_PATH['compiled']} launches for {TIMED} steps")
     sm = step.state.frontend.submaps
     drops = int(sm.high_brick.dropped[0]) + int(sm.low_brick.dropped[0])
     check(drops == 0 and int(step.state.failures) == 0 and int(sm.num_created) >= 2,
@@ -1494,9 +1540,10 @@ def _leaf_diff(x, y):
 
 
 def hold_backend_graphs(names=BACKEND_GRAPHS, replays=HELD_REPLAYS):
-    """Wrap `StepGraph.step` so that the first `replays` replays of every
-    graph named in `names` (the backend's programs, the NDT odometry) are
-    held against the graph's body run eagerly, on the same thread and
+    """Wrap `StepGraph._step` (which `step()` and a call both run) so that
+    the first `replays` replays of every graph named in `names` (the
+    backend's programs, the NDT odometry) are held against the graph's
+    body run eagerly, on the same thread and
     stream, from copies of the same static state and input (under the
     graph's linear algebra, `graph.cusolver`): integers and flags exactly
     (a search's `found`), floats within HELD_ATOL (score, pose; the SPA's
@@ -1509,21 +1556,21 @@ def hold_backend_graphs(names=BACKEND_GRAPHS, replays=HELD_REPLAYS):
 
     from dliom_tpu_torch.common import graph as cg
 
-    orig = cg.StepGraph.step
+    orig = cg.StepGraph._step
     rec = {"held": {}, "errors": [], "lock": threading.Lock()}
 
-    def step(self):
+    def step(self, entry_ns):
         held = rec["held"].setdefault(id(self), {"name": self.name, "replays": 0, "int_equal": True,
                                                  "max_diff": 0.0, "replay_s": 0.0, "eager_s": 0.0})
         if (self.name not in names or self.graph is None or self.device.type != "cuda"
                 or held["replays"] >= replays):
-            return orig(self)
+            return orig(self, entry_ns)
         try:
             stream = torch.cuda.current_stream(self.device)
             pre = tree_clone((self.state, self.inp))
             stream.synchronize()
             t0 = time.perf_counter()
-            orig(self)
+            orig(self, entry_ns)
             stream.synchronize()
             t1 = time.perf_counter()
             with cg.cusolver():
@@ -1545,8 +1592,8 @@ def hold_backend_graphs(names=BACKEND_GRAPHS, replays=HELD_REPLAYS):
                 rec["errors"].append(f"{self.name}: {e!r}")
             raise
 
-    cg.StepGraph.step = step
-    rec["restore"] = lambda: setattr(cg.StepGraph, "step", orig)
+    cg.StepGraph._step = step
+    rec["restore"] = lambda: setattr(cg.StepGraph, "_step", orig)
     return rec
 
 
@@ -1813,9 +1860,11 @@ def check_mapping(ga, ac, dev):
     record_search_chunk(pg)
     rec = record_steps(set(range(E2E_COMPARE)), E2E_BANK_FROM, E2E_BANK_MAX)
     backend_held = hold_backend_graphs()
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
     ga.LAUNCHES = 0  # the main path starts: zero the launch counts
     ga.DENSE_LAUNCHES = 0
-    ac.LAUNCHES = 0
+    ac.LAUNCHES = wo.LAUNCHES = 0
     t_all = time.perf_counter()
     n_warm = warm_until_inter(builder, course, n_warm, E2E_STATIC + E2E_WARM + E2E_WARM_MORE)
     warm_s = time.perf_counter() - t_all
@@ -1853,6 +1902,7 @@ def check_mapping(ga, ac, dev):
           + "; ".join(f"{s} {n} {sc:.3f} {dt:.3f} {dr:.4f}" for s, n, sc, dt, dr in accuracy["inter"]), flush=True)
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
+    K3_BY_PATH["mapping"] = wo.LAUNCHES
     rec["restore"]()
     backend_held["restore"]()
 
@@ -1897,6 +1947,8 @@ def check_mapping(ga, ac, dev):
     # both banks every step
     check(launches["grouped_apply_dense"] == 2 * stepped, "K1 dense entry twice per stepped scan")
     check(launches["affine_chain"] == stepped, "K2 once per stepped scan")
+    check(K3_BY_PATH["mapping"] == stepped,
+          f"mapping: K3 {K3_BY_PATH['mapping']} launches for {stepped} steps")
 
     # K1's dense entry on the main path, held against plain in the bank window
     calls = rec["calls"]
@@ -2094,13 +2146,16 @@ def check_campus(ac, dev):
     init = record_initializer(builder)
     ndt_held = hold_backend_graphs(("ndt",))
     rec = hold_steps(keep=lambda k, _: k < CAMPUS_COMPARE)
-    ac.LAUNCHES = 0  # the main path starts: zero the launch counts
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ac.LAUNCHES = wo.LAUNCHES = 0  # the main path starts: zero the launch counts
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fed = drive_until(builder, course, CAMPUS_STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ac.LAUNCHES
+    K3_BY_PATH["campus"] = wo.LAUNCHES
     compiled_mib = (torch.cuda.max_memory_allocated() / 2**20, torch.cuda.memory_reserved() / 2**20)
     rec["restore"]()
     init["restore"]()
@@ -2108,6 +2163,8 @@ def check_campus(ac, dev):
     results = builder.local_trajectory(0)[:]
     stepped = len(results)
     graph_counts = check_graph_counts("campus", builder.step_counts(), stepped)
+    check(K3_BY_PATH["campus"] == stepped,
+          f"campus: K3 {K3_BY_PATH['campus']} launches for {stepped} steps")
     ndt_counts = builder.graph_counts()["ndt"]
     print(f"campus: NDT odometry program: {ndt_counts['steps']} steps = {ndt_counts['warmups']} warm-up + "
           f"{ndt_counts['replays']} replays; {ndt_counts['captures']} captures", flush=True)
@@ -2282,7 +2339,9 @@ def check_viral(ac, dev):
     course = e2e_course(E2E_STATIC + VIRAL_MOVING)
     builder = MapBuilder(cfg, pipeline_depth=1, device=dev)
     rec = record_brick_calls(spec)
-    ac.LAUNCHES = 0  # the main path starts: zero the launch counts
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ac.LAUNCHES = wo.LAUNCHES = 0  # the main path starts: zero the launch counts
     window_scans, t0 = None, None
     for k, scan in enumerate(course):
         drive(builder, [scan])
@@ -2296,11 +2355,14 @@ def check_viral(ac, dev):
     check(t0 is not None, "viral: a slot was recycled within the course")
     timed_s = time.perf_counter() - t0
     launches = ac.LAUNCHES
+    K3_BY_PATH["viral"] = wo.LAUNCHES
     rec["restore"]()
 
     results = builder.local_trajectory(0)
     stepped = len(results)
     graph_counts = check_graph_counts("viral", builder.step_counts(), stepped)
+    check(K3_BY_PATH["viral"] == stepped,
+          f"viral: K3 {K3_BY_PATH['viral']} launches for {stepped} steps")
     held = check_held("viral", rec["hold"]["held"])
     sm = builder.trajectory(0)._lio.frontend.submaps
     drops = {"brick": int(sm.high_brick.dropped[0]), "dense": int(sm.dense_dropped[0])}
@@ -2362,12 +2424,17 @@ def check_correlative(ac, dev):
         return out
 
     rtc.match = recording
-    ac.LAUNCHES = 0
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ac.LAUNCHES = wo.LAUNCHES = 0
     drive_until(builder, course, RTC_STEPS)
     launches = ac.LAUNCHES
+    K3_BY_PATH["correlative"] = wo.LAUNCHES
     rtc.match = match
     hold["restore"]()
     graph_counts = check_graph_counts("correlative", builder.step_counts(), RTC_STEPS)
+    check(K3_BY_PATH["correlative"] == RTC_STEPS,
+          f"correlative: K3 {K3_BY_PATH['correlative']} launches for {RTC_STEPS} steps")
     held = check_held("correlative", hold["held"])
     check(len(calls) == RTC_STEPS, f"correlative: {len(calls)} pre-searches for {RTC_STEPS} steps")
     worst = max(abs(c["score"][0] - c["score"][1]) for c in calls)
@@ -2507,8 +2574,10 @@ def check_checkpoint(ga, ac, dev, tmp):
     a = MapBuilder(cfg, pipeline_depth=1, device=dev)
     pg = a.pose_graph
     steps = count_steps()
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
     ga.DENSE_LAUNCHES = 0  # the main path starts: zero the launch counts
-    ac.LAUNCHES = 0
+    ac.LAUNCHES = wo.LAUNCHES = 0
     t0 = time.perf_counter()
     fed, finished_at = 0, None
     for scan in course:
@@ -2523,6 +2592,9 @@ def check_checkpoint(ga, ac, dev, tmp):
     drive_s = time.perf_counter() - t0
     launches_a = {"grouped_apply_dense": ga.DENSE_LAUNCHES, "affine_chain": ac.LAUNCHES}
     steps_a = steps["n"]
+    K3_BY_PATH["checkpoint"] = wo.LAUNCHES
+    check(K3_BY_PATH["checkpoint"] == steps_a,
+          f"phase 10: builder A: K3 {K3_BY_PATH['checkpoint']} launches for {steps_a} steps")
     counts_a = check_graph_counts("checkpoint A", a.step_counts(), steps_a)
     check(finished_at is not None, "phase 10: a submap finished on the course")
     check(launches_a["grouped_apply_dense"] == 2 * steps_a and launches_a["affine_chain"] == steps_a,
@@ -2567,7 +2639,7 @@ def check_checkpoint(ga, ac, dev, tmp):
     a.flush()
     steps["n"] = 0
     ga.DENSE_LAUNCHES = 0  # the resumed builder's main path: zero the launch counts
-    ac.LAUNCHES = 0
+    ac.LAUNCHES = wo.LAUNCHES = 0
     t0 = time.perf_counter()
     feed_with_sensors(b, nxt)
     b.flush()
@@ -2575,6 +2647,8 @@ def check_checkpoint(ga, ac, dev, tmp):
     resume_s = time.perf_counter() - t0
     launches_b = {"grouped_apply_dense": ga.DENSE_LAUNCHES, "affine_chain": ac.LAUNCHES}
     steps_b = steps["n"]
+    check(wo.LAUNCHES == steps_b, f"phase 10: builder B: K3 {wo.LAUNCHES} launches for {steps_b} steps")
+    K3_BY_PATH["checkpoint"] += wo.LAUNCHES
     steps["restore"]()
     # B's trajectory builders are new: its graph warms up and captures again
     counts_b = check_graph_counts("checkpoint B", b.step_counts(), steps_b)
@@ -2724,11 +2798,16 @@ def check_runner(ac, dev, tmp):
         ["--dataset", "synthetic", "--device", dev.type, "--output-csv", files["csv"],
          "--output-state", files["state"], "--output-pbstream", files["pbstream"]])
     steps = count_steps()
-    ac.LAUNCHES = 0  # the runner's main path: zero the launch count
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ac.LAUNCHES = wo.LAUNCHES = 0  # the runner's main path: zero the launch counts
     report = offline.run(args)
     launches = ac.LAUNCHES
+    K3_BY_PATH["runner"] = wo.LAUNCHES
     steps["restore"]()
     counts = check_graph_counts("runner", graphs_counts(steps), steps["n"])
+    check(K3_BY_PATH["runner"] == steps["n"],
+          f"phase 10: runner: K3 {K3_BY_PATH['runner']} launches for {steps['n']} steps")
     missing = [k for k in RUNNER_REPORT_KEYS if k not in report]
     check(not missing, f"phase 10: runner report lacks {missing}")
     check(report["num_nodes"] > 0 and all(os.path.getsize(f) > 0 for f in files.values()),
@@ -2774,6 +2853,7 @@ def batched_scaling(ga, ac, dev, single_rate):
     time per step from torch.profiler (the card's activity only) after a
     warm-up cycle (tools/torch_batch_scaling.py --profile prints the spans
     at every B). Returns (rows, K1 launches, K2 launches)."""
+    from dliom_tpu_torch.imu import window_optimizer as wo
     from dliom_tpu_torch.parallel.batch import make_batched_lio_state, make_batched_lio_step
 
     import gc
@@ -2800,13 +2880,15 @@ def batched_scaling(ga, ac, dev, single_rate):
         run(BATCH_WARMUP)
         torch.cuda.synchronize()
         ga.LAUNCHES = 0  # the batched main path starts: zero the launch counts
-        ac.LAUNCHES = 0
+        ac.LAUNCHES = wo.LAUNCHES = 0
         t0 = time.perf_counter()
         run(BATCH_TIMED)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"grouped_apply": ga.LAUNCHES, "affine_chain": ac.LAUNCHES}
         k1, k2 = k1 + ga.LAUNCHES, k2 + ac.LAUNCHES
+        K3_BY_PATH["batched"] = K3_BY_PATH.get("batched", 0) + wo.LAUNCHES
+        check(wo.LAUNCHES == BATCH_TIMED, f"phase 11: B={b} K3 {wo.LAUNCHES} launches for {BATCH_TIMED} steps")
         check(launches == {"grouped_apply": 2 * BATCH_TIMED, "affine_chain": BATCH_TIMED},
               f"phase 11: B={b} launches {launches} for {BATCH_TIMED} steps (2 K1, 1 K2 per step)")
         counts = check_graph_counts(f"batched B={b}", step.counts(), BATCH_WARMUP + BATCH_TIMED)
@@ -2936,7 +3018,9 @@ def batched_held(ga, ac, dev, tag, cfg, lanes, steps, dense, finish=False):
     state = make_batched_lio_state(cfg, lanes, dev)
     step, eager_body, compared = make_batched_lio_step(cfg, lanes), batched_lio_body(cfg, lanes), {}
     kind = "grouped_apply_dense" if dense else "grouped_apply"
-    before = (ga.DENSE_LAUNCHES if dense else ga.LAUNCHES, ac.LAUNCHES)
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    before = (ga.DENSE_LAUNCHES if dense else ga.LAUNCHES, ac.LAUNCHES, wo.LAUNCHES)
     ga.apply_grouped_updates = held
     try:
         for k, inp in enumerate(lane_scans(dev, lanes, steps)):
@@ -2957,6 +3041,9 @@ def batched_held(ga, ac, dev, tag, cfg, lanes, steps, dense, finish=False):
         ga.apply_grouped_updates = entry
     launches = {kind: (ga.DENSE_LAUNCHES if dense else ga.LAUNCHES) - before[0],
                 "affine_chain": ac.LAUNCHES - before[1]}
+    k3 = wo.LAUNCHES - before[2]
+    K3_BY_PATH["batched"] = K3_BY_PATH.get("batched", 0) + k3
+    check(k3 == steps, f"phase 11: {tag}: K3 {k3} launches over {steps} compiled steps")
     check(launches == {kind: 2 * steps, "affine_chain": steps},
           f"phase 11: {tag} launched {launches} over {steps} compiled steps")
     held_steps = check_held(tag, compared)
@@ -3059,8 +3146,10 @@ def check_cloud(ga, ac, dev, resumed, tmp):
     stub = MapBuilderStub(*server.address)
     up = LocalTrajectoryUploader(*server.address, batch_size=64, flush_interval=0.01)
     steps = count_steps()
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
     ga.DENSE_LAUNCHES = 0  # the served builder's main path: zero the launch counts
-    ac.LAUNCHES = 0
+    ac.LAUNCHES = wo.LAUNCHES = 0
     items = 0
     try:
         t0 = time.perf_counter()
@@ -3088,6 +3177,7 @@ def check_cloud(ga, ac, dev, resumed, tmp):
         torch.cuda.synchronize()
         served_s = time.perf_counter() - t0
         launches = {"grouped_apply_dense": ga.DENSE_LAUNCHES, "affine_chain": ac.LAUNCHES}
+        K3_BY_PATH["cloud"] = wo.LAUNCHES
         stepped = steps["n"]
         steps["restore"]()
         status = stub._call("status")
@@ -3099,6 +3189,8 @@ def check_cloud(ga, ac, dev, resumed, tmp):
         cloud_counts = check_graph_counts("cloud", c.step_counts(), stepped)
         check(launches["grouped_apply_dense"] == 2 * stepped and launches["affine_chain"] == stepped,
               f"phase 12: C launches {launches} for {stepped} steps")
+        check(K3_BY_PATH["cloud"] == stepped,
+              f"phase 12: C: K3 {K3_BY_PATH['cloud']} launches for {stepped} steps")
 
         # C against B: one checkpoint, one input, one card
         lb, lc = list(state_leaves(b.trajectory(0)._lio)), list(state_leaves(c.trajectory(0)._lio))
@@ -3197,7 +3289,9 @@ def check_loop_recall(ga, ac, dev):
 
     from dliom_tpu_torch.transform.rigid import Rigid3
 
-    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = wo.LAUNCHES = 0
     trials, card = [], {}
     for seed in LOOP_TRIAL_SEEDS:
         keep = {}
@@ -3208,8 +3302,8 @@ def check_loop_recall(ga, ac, dev):
         card = card or keep
         check(r["recall"] == 1.0 and r["closed"] == 1.0 and r["false_constraints"] == 0,
               f"phase 13: loop-recall trial {seed} on the card: {r}")
-    launches = (ga.LAUNCHES, ga.DENSE_LAUNCHES, ac.LAUNCHES)
-    check(launches == (0, 0, 0), f"phase 13: the loop-recall trials launched K1, K1 dense, K2 {launches}")
+    launches = (ga.LAUNCHES, ga.DENSE_LAUNCHES, ac.LAUNCHES, wo.LAUNCHES)
+    check(launches == (0, 0, 0, 0), f"phase 13: the loop-recall trials launched K1, K1 dense, K2, K3 {launches}")
     print("loop recall: " + "; ".join(
         f"trial {t['seed']} recall {t['recall']:.0f} precision {t['precision']:.3f} closed {t['closed']:.0f} "
         f"false INTER {t['false_constraints']} in {t['seconds']:.2f} s" for t in trials), flush=True)
@@ -3282,9 +3376,12 @@ def check_long_course(ga, ac, dev, tmp):
                    drops=int(builder.trajectory(0)._lio.frontend.submaps.dense_dropped[0]))
 
     steps = count_steps()
-    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the long course's main path starts
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = wo.LAUNCHES = 0  # the long course's main path starts
     report = lc.replay(path, dev, on_builder=on_builder)
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES, "affine_chain": ac.LAUNCHES}
+    K3_BY_PATH["long_course"] = wo.LAUNCHES
     steps["restore"]()
     missing = [k for k in ("pre_optimization_ate_rmse_m", "ate_rmse_m", "pre_optimization_ate_rmse_aligned_m")
                if k not in report]
@@ -3300,6 +3397,8 @@ def check_long_course(ga, ac, dev, tmp):
     box["compiled_step"] = check_graph_counts("long course", graphs_counts(steps), steps["n"])
     check(launches["affine_chain"] == steps["n"] == stepped > 0,
           f"phase 13: long course K2 {launches['affine_chain']} launches for {steps['n']} steps, {stepped} results")
+    check(K3_BY_PATH["long_course"] == steps["n"],
+          f"phase 13: long course: K3 {K3_BY_PATH['long_course']} launches for {steps['n']} steps")
     check(launches["grouped_apply"] == launches["grouped_apply_dense"] == 0,
           f"phase 13: the long course's dense grids take the scatter insert, yet K1 ran {launches}")
     check(box["drops"] == 0 and not any(r["failed"] for r in box["results"]),
@@ -3355,7 +3454,9 @@ def check_bench_frontend(ga, ac, dev):
     os.environ["BENCH_E2E"] = "0"
     os.environ.pop("BENCH_E2E_FLAGSHIP", None)
     out = io.StringIO()
-    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the main path starts: zero the launch counts
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = wo.LAUNCHES = 0  # the main path starts: zero the launch counts
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
@@ -3369,6 +3470,7 @@ def check_bench_frontend(ga, ac, dev):
     seconds = time.perf_counter() - t0
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
+    K3_BY_PATH["bench_frontend"] = wo.LAUNCHES
     lines = out.getvalue().strip().splitlines()
     print(f"bench frontend: bench_torch.main() with BENCH_E2E=0 in {seconds:.1f} s printed: {lines}", flush=True)
     check(len(lines) == 1 and json.loads(lines[0]) == got, "bench frontend: one JSON line")
@@ -3378,6 +3480,8 @@ def check_bench_frontend(ga, ac, dev):
     scans = (bench_torch.WARMUP + bench_torch.MEASURE) * bench_torch.CHUNK
     check(launches == {"grouped_apply": 2 * scans, "grouped_apply_dense": 0, "affine_chain": scans},
           f"bench frontend: launches {launches} for {scans} scans (K1 2, K2 1 a scan)")
+    check(K3_BY_PATH["bench_frontend"] == scans,
+          f"bench_frontend: K3 {K3_BY_PATH['bench_frontend']} launches for {scans} steps")
     return launches, {"line": got, "seconds": seconds, "scans": scans}
 
 
@@ -3466,7 +3570,9 @@ def check_flagship(ga, ac, dev):
     pg = builder.pose_graph
     rec = record_flagship_window(builder, sm_cfg.num_range_data)
     backend_held = hold_backend_graphs()
-    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the main path starts: zero the launch counts
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = wo.LAUNCHES = 0  # the main path starts: zero the launch counts
     t_all = time.perf_counter()
     n_warm = warm_until_inter(builder, course, n_warm, E2E_STATIC + E2E_WARM + FLAGSHIP_WARM_MORE)
     warm_s = time.perf_counter() - t_all
@@ -3490,6 +3596,7 @@ def check_flagship(ga, ac, dev):
     total_s = time.perf_counter() - t_all
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
+    K3_BY_PATH["flagship"] = wo.LAUNCHES
     rec["restore"]()
     backend_held["restore"]()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
@@ -3539,6 +3646,8 @@ def check_flagship(ga, ac, dev):
     # brick K1 on both grids every step
     check(launches == {"grouped_apply": 2 * stepped, "grouped_apply_dense": 0, "affine_chain": stepped},
           f"flagship: launches {launches} for {stepped} stepped scans (K1 brick 2, K2 1 a scan)")
+    check(K3_BY_PATH["flagship"] == stepped,
+          f"flagship: K3 {K3_BY_PATH['flagship']} launches for {stepped} steps")
     win = rec["window"]
     check(win["finished"] is not None, f"flagship: a submap finished in the held window {win}")
     held_steps = sorted(rec["held"])
@@ -3681,7 +3790,9 @@ def mesh_lio(ga, ac, mesh):
     step = sharded_lio_step(cfg, batch, mesh)
     body = batched_lio_body(cfg, MESH_LANES)
     held, results = {}, []
-    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the mesh's main path starts: zero the launch counts
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = wo.LAUNCHES = 0  # the mesh's main path starts: zero the launch counts
     t0 = time.perf_counter()
     states, res = step(states, sharded[0])
     sync_mesh(mesh)
@@ -3705,9 +3816,12 @@ def mesh_lio(ga, ac, mesh):
     results.append(tree_clone(res))  # the last step's (no clone inside the timed window)
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
+    K3_BY_PATH["mesh"] = wo.LAUNCHES
     n_steps = len(sharded)
     check(launches == {"grouped_apply": 2 * d * n_steps, "grouped_apply_dense": 0, "affine_chain": d * n_steps},
           f"phase 16: sharded launches {launches} for {n_steps} steps over {d} shards (K1 2, K2 1 a shard a step)")
+    check(K3_BY_PATH["mesh"] == d * n_steps,
+          f"mesh: K3 {K3_BY_PATH['mesh']} launches for {d * n_steps} steps")
     counts = step.counts()
     check(counts == {"steps": d * n_steps, "warmups": d, "captures": d, "replays": d * (n_steps - 1)},
           f"phase 16: sharded step counts {counts}")
@@ -4014,7 +4128,9 @@ def mesh_builder(ga, ac, mesh, dev):
         return eager_gn_step(*args, **kwargs)
 
     opt._gn_step = counted_gn_step
-    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the builder's main path starts: zero the launch counts
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = wo.LAUNCHES = 0  # the builder's main path starts: zero the launch counts
     t0 = time.perf_counter()
     n = 0
     while n < MESH_BUILDER_SCANS or (not (searches and solves) and n < MESH_BUILDER_SCANS + MESH_BUILDER_MORE):
@@ -4026,6 +4142,7 @@ def mesh_builder(ga, ac, mesh, dev):
     course_s = time.perf_counter() - t0
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
+    K3_BY_PATH["mesh_builder"] = wo.LAUNCHES
     pg._search, pg._solve = search, solve
     opt._gn_step = eager_gn_step
     spa_counts = {k: v for k, v in pg.graph_counts().items() if k.startswith("spa")}
@@ -4036,6 +4153,8 @@ def mesh_builder(ga, ac, mesh, dev):
     check(launches == {"grouped_apply": 2 * stepped, "grouped_apply_dense": 2 * stepped, "affine_chain": stepped},
           f"mesh builder: launches {launches} for {stepped} stepped scans (K1 dense 2, also counted as K1's; "
           "K2 1 a scan)")
+    check(K3_BY_PATH["mesh_builder"] == stepped,
+          f"mesh_builder: K3 {K3_BY_PATH['mesh_builder']} launches for {stepped} steps")
     on_pool = (sum(t != main_thread for *_, t in searches), sum(t != main_thread for *_, t in solves))
     check(searches and solves and on_pool == (len(searches), len(solves)),
           f"mesh builder: {len(searches)} search chunks and {len(solves)} solves, {on_pool} of them on the "
@@ -4156,7 +4275,9 @@ def mesh_frontend(ga, ac, mesh):
     states = [make_batched_state(cfg, MESH_LANES, dev) for dev in mesh.devices]  # lanes from 0 on each shard
     step, body = sharded_step(cfg, mesh), batched_step(cfg)
     ints, floats, pose = [], 0.0, 0.0
-    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = 0  # the sharded frontend step starts: zero the launch counts
+    from dliom_tpu_torch.imu import window_optimizer as wo
+
+    ga.LAUNCHES = ga.DENSE_LAUNCHES = ac.LAUNCHES = wo.LAUNCHES = 0  # the sharded frontend step starts: zero the launch counts
     t0 = time.perf_counter()
     for k, inputs in enumerate(scans):
         pre = [tree_clone(st) for st in states]
@@ -4177,6 +4298,7 @@ def mesh_frontend(ga, ac, mesh):
     seconds = time.perf_counter() - t0
     launches = {"grouped_apply": ga.LAUNCHES, "grouped_apply_dense": ga.DENSE_LAUNCHES,
                 "affine_chain": ac.LAUNCHES}
+    K3_BY_PATH["mesh_frontend"] = wo.LAUNCHES
     n = d * MESH_FRONTEND_STEPS
     counts = step.counts()
     drops = sum(int(st.submaps.dense_dropped.sum()) for st in states)
@@ -4191,6 +4313,8 @@ def mesh_frontend(ga, ac, mesh):
     check(counts == {"steps": n, "warmups": d, "captures": d, "replays": n - d}, f"phase 16 (e): counts {counts}")
     check(launches == {"grouped_apply": 2 * n, "grouped_apply_dense": 2 * n, "affine_chain": 0},
           f"phase 16 (e): launches {launches} for {MESH_FRONTEND_STEPS} steps over {d} shards (K1 dense 2 a shard a step)")
+    check(K3_BY_PATH["mesh_frontend"] == 0,
+          f"mesh_frontend: K3 {K3_BY_PATH['mesh_frontend']} launches: the frontend step has no window")
     check(drops == 0, f"phase 16 (e): dropped grid updates {drops}")
     return launches, {"lanes": batch, "shards": d, "steps": MESH_FRONTEND_STEPS, "seconds": seconds,
                       "pose_diff": pose, "float_diff": floats, "compiled_step": counts}
@@ -4239,8 +4363,10 @@ def main():
     k1, launch_floor = check_grouped_apply(ga, rng)
     t4 = time.perf_counter()
     k2 = check_affine_chain(ac, rng)
+    t4b = time.perf_counter()
+    k3 = check_window_gn(get_device("cuda"))
     t5 = time.perf_counter()
-    print(f"phase 3: {t4 - t3:.1f} s; phase 4: {t5 - t4:.1f} s")
+    print(f"phase 3: {t4 - t3:.1f} s; phase 4: {t4b - t4:.1f} s; phase 4b: {t5 - t4b:.1f} s")
     launches, scans_per_s, spawn = check_slice(ga, ac, get_device("cuda"))
     t14 = time.perf_counter()
     print(f"phases 5-6: {t14 - t5:.1f} s")
@@ -4307,6 +4433,7 @@ def main():
                       "dense_kernels_per_call": dense_kernels, "empty_launch_graph_ms": launch_floor,
                       "grouped_apply_by_shape": {**k1, **k1d},
                       "affine_chain_by_length": k2, "affine_chain_launches": k2_launches,
+                      "window_gn_by_shape": k3,
                       "reduced": {"mapping": f"the course's circle 5 m -> {E2E_RADIUS} m, its warm-up "
                                              f"235 scans -> {mapping['warm_up_scans']}; timed scans "
                                              f"209 -> {mapping['timed_scans']}",
@@ -4351,6 +4478,15 @@ def main():
         record("affine_chain", "dliom_tpu_torch/csrc/affine_chain.cu",
                "dliom_tpu/imu/preintegration.py:102", sum(k2_launches.values()), k2[IMU_CAP],
                max(v["max_abs_err"] for v in k2.values()), launches_by_path=k2_launches),
+        record("window_gn", "dliom_tpu_torch/csrc/window_gn.cu", None, sum(K3_BY_PATH.values()),
+               {"ms": None, "event_ms": None, "graph_ms": k3["W4_B1"]["k3_graph_ms"],
+                "plain_ms": k3["W4_B1"]["plain_graph_ms"], "bound_ms": k3["W4_B1"]["chain_bound_ms"],
+                "bound_by": "chain"},
+               max(g["gap"] for k, m in k3.items() if k != "chain_latency_ns"
+                   for gaps in m["gaps"].values() for g in gaps.values()),
+               launches_by_path=dict(K3_BY_PATH),
+               by_shape={k: {x: m[x] for x in ("k3_graph_ms", "plain_graph_ms", "chain_bound_ms")}
+                         for k, m in k3.items() if k != "chain_latency_ns"}),
         record("grouped_apply_dense", "dliom_tpu_torch/csrc/grouped_apply.cu",
                "dliom_tpu/ops/pallas_apply.py:215", sum(dense_launches.values()), k1d["dense"],
                max(v["max_abs_err"] for v in k1d.values()), launches_by_path=dense_launches,

@@ -81,10 +81,11 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from dliom_tpu_torch.common import launches as _launches
 from dliom_tpu_torch.common import stages
 from dliom_tpu_torch.imu import affine_chain as ac
+from dliom_tpu_torch.imu import window_optimizer as wo
 from dliom_tpu_torch.ops import grouped_apply as ga
 
 # The kernel wrappers' launch counters, (module, global name).
-COUNTERS = ((ga, "LAUNCHES"), (ga, "DENSE_LAUNCHES"), (ac, "LAUNCHES"))
+COUNTERS = ((ga, "LAUNCHES"), (ga, "DENSE_LAUNCHES"), (ac, "LAUNCHES"), (wo, "LAUNCHES"))
 _ALIGN = 16  # bytes: every input leaf starts on a 16-byte boundary of the flat buffer
 COUNTS = ("steps", "warmups", "captures", "replays")  # a StepGraph's counters
 POOLS = ("device", "own")  # the named pools; a graph may also be given a SharedPool

@@ -1,7 +1,8 @@
 """The kernel wrappers' launch counters.
 
 The wrappers count their launches in module globals (`ops/grouped_apply.py`
-`LAUNCHES`, `DENSE_LAUNCHES`, `imu/affine_chain.py` `LAUNCHES`), which every
+`LAUNCHES`, `DENSE_LAUNCHES`, `imu/affine_chain.py` `LAUNCHES`,
+`imu/window_optimizer.py` `LAUNCHES`), which every
 thread adds to: a wrapper's launch, and a CUDA graph's replay, which adds the
 launches its capture made (`common/graph.py`). Every change goes through
 `count` or `add`, under one lock, so that no thread's addition is lost.

@@ -114,16 +114,19 @@ def _window_gravity(win: wo.WindowState, cfg: TrajectoryBuilderConfig):
     return g_world / torch.clamp(_norm(g_world), min=1e-9), ok
 
 
-def fuse_window(window: wo.WindowState, preint: pre.Preintegrated, predicted: pre.NavState,
-                pose_estimate: Rigid3, grav_dir, grav_ok, ba, bg, cfg: TrajectoryBuilderConfig):
-    """The window stage: push the scan's key, Gauss-Newton, the newest
-    state, and FailureDetection -> ResetParams (:896-913). Returns
-    (fused pose, (window, nav, ba, bg, failed))."""
-    g_norm = cfg.imu.gravity
-    win = wo.push_key(window, preint, predicted, pose_estimate,
-                      torch.zeros((), dtype=torch.bool, device=ba.device), grav_dir, grav_ok,
-                      cfg.imu, g_norm)
-    win = wo.optimize(win, cfg.imu, g_norm, iterations=cfg.gn_iterations)
+def push_window(window: wo.WindowState, preint: pre.Preintegrated, predicted: pre.NavState,
+                pose_estimate: Rigid3, grav_dir, grav_ok, cfg: TrajectoryBuilderConfig) -> wo.WindowState:
+    """The window stage's first part: the scan's key pushed."""
+    return wo.push_key(window, preint, predicted, pose_estimate,
+                       torch.zeros((), dtype=torch.bool, device=grav_dir.device), grav_dir, grav_ok,
+                       cfg.imu, cfg.imu.gravity)
+
+
+def finish_window(win: wo.WindowState, predicted: pre.NavState, ba, bg,
+                  cfg: TrajectoryBuilderConfig):
+    """The window stage's last part: the newest state, and FailureDetection
+    -> ResetParams (:896-913). Returns (fused pose, (window, nav, ba, bg,
+    failed))."""
     nav2, ba2, bg2 = wo.latest_state(win)
     failed = wo.failure_detected(win)
     reset_win = wo.make_window(cfg.window_size, predicted, ba, bg, cfg.imu)
@@ -132,6 +135,16 @@ def fuse_window(window: wo.WindowState, preint: pre.Preintegrated, predicted: pr
     ba2 = torch.where(failed, ba, ba2)
     bg2 = torch.where(failed, bg, bg2)
     return nav2.pose, (win, nav2, ba2, bg2, failed)
+
+
+def fuse_window(window: wo.WindowState, preint: pre.Preintegrated, predicted: pre.NavState,
+                pose_estimate: Rigid3, grav_dir, grav_ok, ba, bg, cfg: TrajectoryBuilderConfig):
+    """The window stage: push the scan's key, Gauss-Newton, the newest
+    state, and FailureDetection -> ResetParams. Returns (fused pose,
+    (window, nav, ba, bg, failed))."""
+    win = push_window(window, preint, predicted, pose_estimate, grav_dir, grav_ok, cfg)
+    win = wo.optimize(win, cfg.imu, cfg.imu.gravity, iterations=cfg.gn_iterations)
+    return finish_window(win, predicted, ba, bg, cfg)
 
 
 def imu_carry(imu_acc, imu_gyr, imu_mask, last_acc, last_gyr):

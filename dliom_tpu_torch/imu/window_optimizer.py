@@ -6,17 +6,23 @@ A dense window of W keys (q, p, v, ba, bg) with, per key, an IMU factor to
 its predecessor (15-dim, VINS evaluate() form + bias random walk), a
 scan-match pose prior, an optional gravity attitude factor, and an
 information-form prior on the head. Gauss-Newton with a fixed iteration
-count; the Jacobian is `torch.func.jacfwd` over the 15W tangent, and the
-per-key factors are evaluated as one batch each.
+count. `optimize_plain` takes the Jacobian with `torch.func.jacfwd` over the
+15W tangent and evaluates the per-key factors as one batch each; on the
+card `optimize` runs all iterations as one launch of K3
+(`csrc/window_gn.cu`), one block per lane, for a window with or without a
+leading lane axis.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
-from torch.func import jacfwd
+from torch.func import jacfwd, vmap
 
+from dliom_tpu_torch import kernels
+from dliom_tpu_torch.common import launches
 from dliom_tpu_torch.common.config import ImuConfig
 from dliom_tpu_torch.common.device import constant
 from dliom_tpu_torch.imu.preintegration import NavState, Preintegrated, bias_corrected_deltas
@@ -36,6 +42,9 @@ from dliom_tpu_torch.transform.rigid import (
 )
 
 KEY_DIM = 15
+
+# K3 launches through `optimize` (plain-version calls not counted).
+LAUNCHES = 0
 
 
 class WindowState(NamedTuple):
@@ -209,8 +218,8 @@ def _jacobian(res, n: int, device):
     return r, jac
 
 
-def optimize(state: WindowState, cfg: ImuConfig, gravity: float, iterations: int = 8) -> WindowState:
-    """Fixed-count Gauss-Newton over the whole window."""
+def optimize_plain(state: WindowState, cfg: ImuConfig, gravity: float, iterations: int = 8) -> WindowState:
+    """Fixed-count Gauss-Newton over the whole window, in plain PyTorch."""
     w = state.window
     n = w * KEY_DIM
     dev = state.q.device
@@ -233,6 +242,52 @@ def optimize(state: WindowState, cfg: ImuConfig, gravity: float, iterations: int
         delta = torch.clamp(delta, -1.0, 1.0)
         state = _states_apply_delta(state, delta)
     return state
+
+
+_BOOL_FIELDS = ("obs_drift", "obs_valid", "grav_valid")
+
+
+def optimize(state: WindowState, cfg: ImuConfig, gravity: float, iterations: int = 8) -> WindowState:
+    """`optimize_plain` over a window, or over a window with a leading lane
+    axis (B, W, ...) and `num_keys` (B,). CPU tensors take the plain version
+    (vmapped over the lanes); CUDA tensors launch K3 once for all lanes,
+    and raise where a window of W keys needs more shared memory than one
+    block may have. The inputs are not written: q, p, v, ba and bg come
+    back new."""
+    batched = state.num_keys.dim() == 1
+    dev = state.q.device
+    if dev.type == "cpu":
+        if not batched:
+            return optimize_plain(state, cfg, gravity, iterations)
+        return vmap(lambda s: optimize_plain(s, cfg, gravity, iterations))(state)
+    if dev.type != "cuda":
+        raise ValueError(f"optimize: unsupported device {dev}")
+    lanes = state if batched else WindowState(*(x[None] for x in state))
+    b, w = lanes.q.shape[0], lanes.q.shape[1]
+    for name, x in zip(WindowState._fields, lanes):
+        dtype = (torch.bool if name in _BOOL_FIELDS else torch.int32 if name == "num_keys"
+                 else torch.float32)
+        if x.dtype != dtype or x.device != dev or x.shape[0] != b:
+            raise ValueError(f"optimize: {name} must be {dtype} on {dev} with {b} lanes, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    lib = kernels.library()
+    inputs = [x.contiguous() for x in lanes]
+    outputs = [torch.empty(b, w, x.shape[-1], dtype=torch.float32, device=dev)
+               for x in (lanes.q, lanes.p, lanes.v, lanes.ba, lanes.bg)]
+    params = (ctypes.c_float * 8)(
+        gravity, cfg.acc_bias_noise, cfg.gyr_bias_noise, cfg.ceres_pose_noise_t,
+        cfg.ceres_pose_noise_t_drift, cfg.ceres_pose_noise_r, cfg.ceres_pose_noise_r_drift,
+        cfg.prior_gravity_noise)
+    with torch.cuda.device(dev):  # the launch goes to the inputs' card
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dliom_window_gn(
+            (ctypes.c_void_p * len(inputs))(*(x.data_ptr() for x in inputs)),
+            (ctypes.c_void_p * len(outputs))(*(x.data_ptr() for x in outputs)),
+            params, b, w, iterations, stream)
+    kernels.check(err, "window_gn")
+    launches.count(__name__, "LAUNCHES")
+    q, p, v, ba, bg = outputs if batched else (x[0] for x in outputs)
+    return state._replace(q=q, p=p, v=v, ba=ba, bg=bg)
 
 
 # Exact Schur marginalization of slid-out keys was measured (in the JAX

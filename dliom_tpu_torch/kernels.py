@@ -8,7 +8,8 @@ carries the hash of the sources, so an edited source rebuilds. Nothing here
 runs at import: the CPU tests import every module on machines without nvcc.
 
 Each C entry point launches on the stream it is given and returns
-`cudaGetLastError()`; `check` raises on anything but 0.
+`cudaGetLastError()`, or `SHARED_MEMORY_EXCEEDED` where its block would not
+fit; `check` raises on anything but 0.
 """
 
 from __future__ import annotations
@@ -46,7 +47,13 @@ _SIGNATURES = {
     "dliom_stage_mark": [_P, _I, _I, _I, _I, _P],
     # stream, out (int64)
     "dliom_capture_kernels": [_P, _P],
+    # inputs (void*[26]), outputs (void*[5]), params (float[8]), batch,
+    # window, iterations, stream
+    "dliom_window_gn": [_P, _P, _P, _I, _I, _I, _P],
 }
+# What an entry point returns, beside CUDA's errors, where its block would
+# take more shared memory than the card gives one.
+SHARED_MEMORY_EXCEEDED = -1
 
 _lib = None
 
@@ -117,6 +124,8 @@ def library() -> ctypes.CDLL:
 
 
 def check(code: int, what: str) -> None:
+    if code == SHARED_MEMORY_EXCEEDED:
+        raise ValueError(f"{what}: the launch needs more shared memory than a block may have on this card")
     if code != 0:
         msg = library().dliom_cuda_error_string(code).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {code} ({msg})")

@@ -17,8 +17,9 @@ The lane axis is explicit: the stages that launch a kernel, read or write
 a bank, or read on the host take all lanes at once (K2 over (B, M, 15, 15)
 in `pre.integrate`, the LM match with a bank slot per lane that stops when
 every lane has converged, the histogram's lane-offset segment sums, the
-spawn clears and the flat insert). The pure-torch stages between them (the
-prediction, deskew and voxel filters, the window Gauss-Newton and gravity
+spawn clears and the flat insert, and the window Gauss-Newton, K3 over the
+(B, W, ...) window). The pure-torch stages between them (the prediction,
+deskew and voxel filters, the window's key push and finish, the gravity
 estimate, the motion filter and the insertion's bookkeeping) run under
 `torch.func.vmap`, whose batched ops launch once for all lanes (a voxel
 filter's sort is one sort of B rows). No stage loops over lanes on the
@@ -66,10 +67,11 @@ from dliom_tpu_torch.frontend.lio import (
     _window_gravity,
     bank_leaves,
     chunk_body,
+    finish_window,
     frontend_bank_leaves,
-    fuse_window,
     imu_carry,
     make_lio_state,
+    push_window,
 )
 from dliom_tpu_torch.frontend.local_trajectory_builder import (
     FrontendState,
@@ -85,6 +87,7 @@ from dliom_tpu_torch.frontend.local_trajectory_builder import (
     match_target,
 )
 from dliom_tpu_torch.imu import preintegration as pre
+from dliom_tpu_torch.imu import window_optimizer as wo
 from dliom_tpu_torch.mapping.brick_grid import make_brick_bank, reset_slot
 from dliom_tpu_torch.mapping.grid import GRID_DTYPE
 from dliom_tpu_torch.mapping.submap import (
@@ -308,6 +311,17 @@ def batched_step(cfg: TrajectoryBuilderConfig):
     return run
 
 
+def window_lanes(window, preint, predicted, pose_estimate, grav_dir, grav_ok, ba, bg,
+                 cfg: TrajectoryBuilderConfig):
+    """`fuse_window` over B lanes: the pushes under vmap, one Gauss-Newton
+    over the (B, W, ...) window (one K3 launch on the card), the finish
+    under vmap."""
+    win = _over_lanes(functools.partial(push_window, cfg=cfg), window, preint, predicted,
+                      pose_estimate, grav_dir, grav_ok)
+    win = wo.optimize(win, cfg.imu, cfg.imu.gravity, iterations=cfg.gn_iterations)
+    return _over_lanes(functools.partial(finish_window, cfg=cfg), win, predicted, ba, bg)
+
+
 def lio_lanes(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig):
     """`lio_step` over B lanes with its grid writes deferred."""
     b = inp.points.shape[0]
@@ -327,8 +341,8 @@ def lio_lanes(state: LioState, inp: LioScanInput, cfg: TrajectoryBuilderConfig):
 
     def fuse(pose_estimate):
         with stage("lio.window"):
-            return _over_lanes(functools.partial(fuse_window, cfg=cfg), state.window, preint,
-                               predicted, pose_estimate, grav_dir, grav_ok, state.ba, state.bg)
+            return window_lanes(state.window, preint, predicted, pose_estimate, grav_dir, grav_ok,
+                                state.ba, state.bg, cfg)
 
     scan = ScanInput(time=inp.time, points=inp.points, times=inp.times, mask=inp.mask,
                      relative_prediction=rel)

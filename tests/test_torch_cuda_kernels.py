@@ -6,10 +6,14 @@ false). This file imports no jax, so it runs on a CUDA host without JAX:
 
 (`--noconftest`: tests/conftest.py configures JAX for the rest of the suite.)
 K1 must be bit-identical; K2 agrees to rtol 1e-5 / atol 1e-6, the
-tolerance of the CPU parity tests. The float segment sums
+tolerance of the CPU parity tests; K3 (the window Gauss-Newton) agrees
+with `optimize_plain` on the card field by field, within the bounds of
+tests/window_cases.py (none above 1e-3, the bound
+tests/test_torch_window.py argues for this solve). The float segment sums
 (ops/segment.py) give the same bits on every run on the card, at each of
 their sites, and the CPU's bits; the batched step (parallel/batch.py)
-launches K1 once per brick grid and K2 once per step, whatever B is.
+launches K1 once per brick grid and K2 and K3 once per step, whatever B
+is.
 """
 
 import importlib.util
@@ -22,8 +26,10 @@ from torch.autograd import DeviceType
 
 from dliom_tpu_torch.common.config import load_config
 from dliom_tpu_torch.imu import affine_chain as K2
+from dliom_tpu_torch.imu import window_optimizer as K3
 from dliom_tpu_torch.mapping import brick_grid as TB
 from dliom_tpu_torch.ops import grouped_apply as K1
+from window_cases import FIELDS, field_gaps, out_of_bounds, pushed_windows
 
 pytestmark = pytest.mark.cuda
 _spec = importlib.util.spec_from_file_location(
@@ -187,6 +193,76 @@ def test_affine_chain_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(a_k, a_p, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(p_k, p_p, rtol=1e-5, atol=1e-6)
     assert torch.equal(a_1, a_k[1]) and torch.equal(p_1, p_k[1])
+
+
+def _to(win, dev):
+    return K3.WindowState(*(x.to(dev) for x in win))
+
+
+def _assert_k3_close(got, want, start, iterations, what):
+    for f in K3.WindowState._fields:
+        if f not in FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f"{what}: {f}"
+    bad = out_of_bounds({f"iterations_{iterations}": field_gaps(got, want, start)})
+    assert not bad, f"{what}: {bad}"
+
+
+@pytest.mark.parametrize("preset,w,gravity,empty_at", [
+    ("viral", 4, False, None), ("viral", 4, True, None), ("campus", 4, True, None),
+    ("campus", 4, False, 1), ("viral", 6, True, 2), ("campus", 6, False, None)])
+def test_window_gn_kernel_matches_plain(cuda_device, preset, w, gravity, empty_at):
+    """K3 against `optimize_plain` on the card, after every push of
+    tests/window_cases.py's `pushed_windows` (num_keys 2..W, then full and
+    slid; an empty preintegration where given), at 8 Gauss-Newton
+    iterations and at 1: each of q, p, v, ba, bg within its own bound
+    (`out_of_bounds`; the biases' are 1e-7 and 2e-7, below what a wrong
+    bias column of the Jacobian moves them), every other field untouched
+    and the inputs unwritten; one launch a call."""
+    from dliom_tpu_torch.common import graph as cg
+
+    imu, wins = pushed_windows(preset, w, gravity, empty_at)
+    for k, win in enumerate(wins):
+        card = _to(win, cuda_device)
+        kept = _to(win, cuda_device)
+        for iterations in (8, 1):
+            with cg.cusolver():
+                want = K3.optimize_plain(card, imu, imu.gravity, iterations)
+            launches = K3.LAUNCHES
+            got = K3.optimize(card, imu, imu.gravity, iterations)
+            torch.cuda.synchronize()
+            assert K3.LAUNCHES == launches + 1
+            _assert_k3_close(got, want, card, iterations, f"{preset} push {k} iterations {iterations}")
+        assert all(torch.equal(x, y) for x, y in zip(card, kept))
+
+
+def test_window_gn_kernel_over_lanes(cuda_device):
+    """K3 over 18 lanes in one launch (windows full and not, with and
+    without gravity rows, an empty preintegration among them): each lane
+    bit for bit its own single-lane launch, and within the bounds of
+    `optimize_plain`; then a window too large for one block's shared
+    memory raises."""
+    from torch.utils._pytree import tree_map
+
+    from dliom_tpu_torch.common import graph as cg
+
+    imu, wins = pushed_windows("viral", 4, True, empty_at=3, seed=1)
+    _, more = pushed_windows("viral", 4, False, seed=2)
+    lanes = [_to(x, cuda_device) for x in (wins + more + wins)[:18]]
+    stacked = tree_map(lambda *xs: torch.stack(xs), *lanes)
+    launches = K3.LAUNCHES
+    got = K3.optimize(stacked, imu, imu.gravity, 8)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES == launches + 1
+    for b, lane in enumerate(lanes):
+        one = K3.optimize(lane, imu, imu.gravity, 8)
+        for f in ("q", "p", "v", "ba", "bg"):
+            assert torch.equal(getattr(got, f)[b], getattr(one, f)), (b, f)
+        with cg.cusolver():
+            want = K3.optimize_plain(lane, imu, imu.gravity, 8)
+        _assert_k3_close(K3.WindowState(*(x[b] for x in got)), want, lane, 8, f"lane {b}")
+    big = _to(K3.make_window(16, K3.NavState.identity(), torch.zeros(3), torch.zeros(3), imu), cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        K3.optimize(big, imu, imu.gravity, 8)
 
 
 def _dense_keys(rng, groups_touched, num_records, cpg=16384, cells=None):
@@ -554,8 +630,9 @@ def test_spa_solve_deterministic(cuda_device):
 
 
 def test_batched_step_launches(cuda_device):
-    """One batched LIO step at B = 1 and B = 4: one K2 call and one K1 call
-    per brick grid, whatever B is; lane 0 of B = 4 takes the B = 1 pose."""
+    """One batched LIO step at B = 1 and B = 4: one K2 call, one K3 call and
+    one K1 call per brick grid, whatever B is (the capture records one K3
+    launch a step); lane 0 of B = 4 takes the B = 1 pose."""
     from dliom_tpu_torch.frontend.lio import LioScanInput
     from dliom_tpu_torch.io.synthetic import SyntheticWorld, corkscrew_trajectory
     from dliom_tpu_torch.parallel.batch import make_batched_lio_state, make_batched_lio_step
@@ -586,11 +663,12 @@ def test_batched_step_launches(cuda_device):
             imu_mask=torch.ones(lanes, 16, dtype=torch.bool, device=cuda_device))
         state = make_batched_lio_state(cfg, lanes, cuda_device)
         step = make_batched_lio_step(cfg, lanes)
-        k1, k2 = K1.LAUNCHES, K2.LAUNCHES
+        k1, k2, k3 = K1.LAUNCHES, K2.LAUNCHES, K3.LAUNCHES
         for _ in range(2):
             state, res = step(state, inp)
         torch.cuda.synchronize()
-        assert (K1.LAUNCHES - k1, K2.LAUNCHES - k2) == (4, 2)
+        assert (K1.LAUNCHES - k1, K2.LAUNCHES - k2, K3.LAUNCHES - k3) == (4, 2, 2)
+        assert step.launches["dliom_tpu_torch.imu.window_optimizer.LAUNCHES"] == 1
         poses[lanes] = res.scan.local_pose.translation.cpu()
     torch.testing.assert_close(poses[4][0], poses[1][0], atol=2e-4, rtol=0)
 
@@ -660,7 +738,8 @@ def test_compiled_step_replays_the_eager_step(cuda_device):
     call warms up and captures, each later call replays; every replay
     equals the eager `lio_step` from the same pre-step state (integer state
     and flags bit for bit, pose within 2e-3), and the launch counters count
-    the replays' K1 and K2 launches as the eager step's."""
+    the replays' K1, K2 and K3 launches as the eager step's: the capture
+    records one K3 launch a step."""
     from dliom_tpu_torch.common import graph as cg
     from dliom_tpu_torch.frontend.lio import make_jit_lio_step
 
@@ -674,8 +753,10 @@ def test_compiled_step_replays_the_eager_step(cuda_device):
         torch.cuda.synchronize()
         replayed = {k: v - before[k] for k, v in cg.launch_counts().items()}
         assert replayed == {"dliom_tpu_torch.ops.grouped_apply.LAUNCHES": 2, "dliom_tpu_torch.ops.grouped_apply.DENSE_LAUNCHES": 0,
-                            "dliom_tpu_torch.imu.affine_chain.LAUNCHES": 1}, (i, replayed)
+                            "dliom_tpu_torch.imu.affine_chain.LAUNCHES": 1,
+                            "dliom_tpu_torch.imu.window_optimizer.LAUNCHES": 1}, (i, replayed)
         _held_step(cfg, pre, inp, state, res)
+    assert step.launches["dliom_tpu_torch.imu.window_optimizer.LAUNCHES"] == 1
     assert _tallies(step.counts()) == {"steps": 6, "warmups": 1, "captures": 1, "replays": 5}
     assert int(state.failures) == 0
 
@@ -1054,7 +1135,8 @@ def test_sharded_lio_step_holds_each_shard(cuda_device):
         launched = {k: v - before[k] for k, v in cg.launch_counts().items()}
         assert launched == {"dliom_tpu_torch.ops.grouped_apply.LAUNCHES": 2 * mesh.size,
                             "dliom_tpu_torch.ops.grouped_apply.DENSE_LAUNCHES": 0,
-                            "dliom_tpu_torch.imu.affine_chain.LAUNCHES": mesh.size}, (i, launched)
+                            "dliom_tpu_torch.imu.affine_chain.LAUNCHES": mesh.size,
+                            "dliom_tpu_torch.imu.window_optimizer.LAUNCHES": mesh.size}, (i, launched)
         for k, dev in enumerate(mesh.devices):
             with cg.cusolver(), torch.cuda.device(dev):
                 want_state, want = body(pre[k], inputs[k])
@@ -1221,7 +1303,8 @@ def test_compiled_sharded_frontend_step_holds_each_shard(cuda_device):
         launched = {k: v - before[k] for k, v in cg.launch_counts().items()}
         assert launched == {"dliom_tpu_torch.ops.grouped_apply.LAUNCHES": 2 * mesh.size,
                             "dliom_tpu_torch.ops.grouped_apply.DENSE_LAUNCHES": 0,
-                            "dliom_tpu_torch.imu.affine_chain.LAUNCHES": 0}, (i, launched)
+                            "dliom_tpu_torch.imu.affine_chain.LAUNCHES": 0,
+                            "dliom_tpu_torch.imu.window_optimizer.LAUNCHES": 0}, (i, launched)
         for k, dev in enumerate(mesh.devices):
             with cg.cusolver(), torch.cuda.device(dev):
                 want_state, want = body(pre[k], inputs[k])

@@ -115,3 +115,59 @@ def test_sqrt_information():
     cov = (a @ a.T * 1e-4).astype(np.float32)
     np.testing.assert_allclose(TW.sqrt_information(_t(cov)).numpy(),
                                np.asarray(JW.sqrt_information(jnp.asarray(cov))), rtol=1e-3, atol=1e-3)
+
+
+def _lane_inputs(lanes: int, w: int):
+    """`fuse_window`'s inputs for `lanes` different lanes, each a window of
+    w keys with w - 1 - b pushed already (lane 0 full, the others not) and
+    its own IMU bridge, scan-match pose and gravity flag."""
+    from dliom_tpu_torch.common.config import load_config as t_load_config
+
+    cfg = t_load_config("basic", {"trajectory_builder": {"window_size": w, "gn_iterations": 2}}).trajectory_builder
+    rng = np.random.default_rng(7)
+    out = []
+    for b in range(lanes):
+        nav, ba, bg = TP.NavState.identity(), torch.zeros(3), torch.zeros(3)
+        win = TW.make_window(w, nav, ba, bg, _IMU)
+        for k in range(w - b):
+            accs = torch.from_numpy((np.array([0.2, 0.1, G]) + rng.normal(0, 0.05, (24, 3))).astype(np.float32))
+            gyrs = torch.from_numpy((np.array([0.0, 0.0, 0.2]) + rng.normal(0, 0.01, (24, 3))).astype(np.float32))
+            preint = TP.integrate(TP.make_preintegrated(ba, bg, accs[0], gyrs[0]), torch.full((24,), 0.004),
+                                  accs, gyrs, torch.arange(24) < 20, TP.noise_matrix(_IMU))
+            predicted = TP.predict(nav, preint, G)
+            noise = torch.from_numpy(rng.normal(0, 0.01, 7).astype(np.float32))
+            pose = TRigid3(TW.quat_normalize(predicted.rotation + noise[:4]), predicted.position + noise[4:])
+            grav_dir = torch.tensor([0.01, -0.02, -1.0]) / np.sqrt(1.0005)
+            grav_ok = torch.tensor((b + k) % 2 == 0)
+            if k == w - b - 1:
+                out.append((win, preint, predicted, pose, grav_dir, grav_ok, ba, bg))
+                break
+            win = TW.push_key(win, preint, predicted, pose, torch.tensor(False), grav_dir, grav_ok, _IMU, G)
+            nav = predicted
+    return cfg, out
+
+
+def test_window_lanes_equal_fuse_window_per_lane():
+    """The batched window stage split in three (the pushes under vmap, one
+    `optimize` over the (B, W, ...) window, the finish under vmap) against
+    `fuse_window` lane by lane, at B = 3, W = 4, with windows full and not."""
+    from torch.utils._pytree import tree_map
+
+    from dliom_tpu_torch.frontend.lio import fuse_window
+    from dliom_tpu_torch.parallel.batch import window_lanes
+
+    cfg, lanes = _lane_inputs(3, 4)
+    stacked = tree_map(lambda *xs: torch.stack(xs), *lanes)
+    pose, (win, nav, ba, bg, failed) = window_lanes(*stacked, cfg)
+    assert win.num_keys.tolist() == [4, 4, 3]
+    for b, args in enumerate(lanes):
+        l_pose, (l_win, l_nav, l_ba, l_bg, l_failed) = fuse_window(*args, cfg)
+        for f in TW.WindowState._fields:
+            x, y = getattr(win, f)[b], getattr(l_win, f)
+            if y.is_floating_point():
+                torch.testing.assert_close(x, y, atol=ATOL, rtol=1e-4, msg=f)
+            else:
+                assert torch.equal(x, y), f
+        for x, y in zip((*pose, *nav, ba, bg), (*l_pose, *l_nav, l_ba, l_bg)):
+            torch.testing.assert_close(x[b], y, atol=ATOL, rtol=1e-4)
+        assert bool(failed[b]) == bool(l_failed)
